@@ -8,13 +8,22 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      removing any library left from an earlier build first;
   3. hold each kernel against its plain PyTorch version on the card
      (max |diff| <= 1e-3) and time both (CUDA events, median of 25 warm
-     runs at (4, 540, 960));
+     runs at (4, 540, 960); the JSON record carries these times);
   4. render the headline clip (300 frames, 1080p) on the card and run
-     ``process`` with ``bench.bench_config()`` twice, with the launch counts
-     reset just before; check the repo's accuracy bounds and that every
-     kernel ran on the main path; then compare the kernels once more at
-     the main path's own CLAHE shape (all keyframes, 540x960).
-The last two lines are a JSON record of the kernels and the device line.
+     ``process`` with ``bench.bench_config()`` and the renderer's board
+     corners twice, with the launch counts reset just before; check the
+     repo's accuracy bounds and that every kernel ran on this path; then
+     compare the kernels once more at the path's own CLAHE shape (all
+     keyframes, grey at 540x960);
+  5. the board-finding default path: the same clip through ``process`` with
+     ``detector_config(bench.bench_config())`` (device pass 1, ``bgr_lab``
+     enhance, device chessboard detector) and NO known corners, twice, with
+     the launch counts reset just before; the same checks; then compare
+     the kernels at this path's two CLAHE inputs: the first pass-1 chunk
+     (32, 180, 320) and the keyframes' LAB lightness (n_kf, 540, 960),
+     and time both there too.
+The last two lines are a JSON record of the kernels (launches summed over
+both paths) and the device line.
 Per-stage attribution, device busy share and the e2e spread come from
 ``python3 -m meatmodeler_tpu_torch.tools.profile_headline``.
 """
@@ -31,10 +40,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from meatmodeler_tpu.io import native_ops
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
-from meatmodeler_tpu_torch.ops import clahe_cuda
+from meatmodeler_tpu_torch.ops import clahe_cuda, color
 from meatmodeler_tpu_torch.pipeline import process
-from meatmodeler_tpu_torch.tools.profile_headline import HEADLINE_FRAMES, headline_clip
+from meatmodeler_tpu_torch.tools.profile_headline import HEADLINE_FRAMES, detector_config, headline_clip
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "build" / "chip_smoke"
@@ -75,11 +85,16 @@ def _time_ms(fn, reps: int = 25) -> float:
 
 
 def compare_kernels(dev, cases, err):
-    """Each kernel against its plain version on seeded uint8-valued input;
-    raises on disagreement, folds the max errors into ``err``."""
+    """Each kernel against its plain version; raises on disagreement, folds
+    the max errors into ``err``. A case is (shape, tiles) for seeded
+    uint8-valued input, or (label, float32 image stack on the card)."""
     rng = np.random.default_rng(0)
-    for shape, tiles in cases:
-        img = torch.from_numpy(rng.integers(0, 256, size=shape).astype(np.float32)).to(dev)
+    for case, arg in cases:
+        if isinstance(case, str):
+            img, tiles, label = arg, (8, 8), f"{case} {tuple(arg.shape)}"
+        else:
+            img = torch.from_numpy(rng.integers(0, 256, size=case).astype(np.float32)).to(dev)
+            tiles, label = arg, f"{case} tiles={arg}"
         lut_k = clahe_cuda.clahe_lut(img, 3.5, tiles)
         lut_p = clahe_mod.lut_reference(img, 3.5, tiles)
         out_k = clahe_cuda.clahe_apply(img, lut_p, tiles)
@@ -88,17 +103,19 @@ def compare_kernels(dev, cases, err):
         torch.cuda.synchronize()
         e_lut = float((lut_k - lut_p).abs().max())
         e_app = max(float((out_k - out_p).abs().max()), float(whole))
-        print(f"kernel check {shape} tiles={tiles}: lut max|d|={e_lut:.3g} apply max|d|={e_app:.3g}")
+        print(f"kernel check {label}: lut max|d|={e_lut:.3g} apply max|d|={e_app:.3g}")
         if not (e_lut <= TOL and e_app <= TOL):
-            raise AssertionError(f"CLAHE kernel disagrees with its plain version at {shape}")
+            raise AssertionError(f"CLAHE kernel disagrees with its plain version at {label}")
         err["clahe_lut"] = max(err["clahe_lut"], e_lut)
         err["clahe_apply"] = max(err["clahe_apply"], e_app)
 
 
-def time_kernels(dev):
-    """Warm median times of each kernel and its plain version at (4, 540, 960)."""
-    rng = np.random.default_rng(1)
-    img = torch.from_numpy(rng.integers(0, 256, size=(4, 540, 960)).astype(np.float32)).to(dev)
+def time_kernels(dev, img=None):
+    """Warm median times of each kernel and its plain version on ``img``
+    (default: seeded uint8-valued (4, 540, 960))."""
+    if img is None:
+        rng = np.random.default_rng(1)
+        img = torch.from_numpy(rng.integers(0, 256, size=(4, 540, 960)).astype(np.float32)).to(dev)
     lut = clahe_mod.lut_reference(img)
     ms = {
         "clahe_lut": _time_ms(lambda: clahe_cuda.clahe_lut(img, 3.5, (8, 8))),
@@ -110,35 +127,30 @@ def time_kernels(dev):
     }
     whole_k = _time_ms(lambda: clahe_mod.clahe(img))
     whole_p = _time_ms(lambda: clahe_mod.clahe_reference(img))
-    print(f"CLAHE (4, 540, 960) warm median ms: kernels {ms} plain {plain_ms}; "
+    print(f"CLAHE {tuple(img.shape)} warm median ms: kernels {ms} plain {plain_ms}; "
           f"whole clahe kernels {whole_k:.4f} plain {whole_p:.4f}")
     return ms, plain_ms
 
 
-def run_headline(dev):
-    """Phase 4: the headline clip through the main path, twice."""
-    import bench
-
-    t0 = time.perf_counter()
-    scene, frames, corners = headline_clip(dev)
-    torch.cuda.synchronize()
-    print(f"rendered {frames.shape} in {time.perf_counter() - t0:.2f} s")
-    OUT.mkdir(parents=True, exist_ok=True)
-    config = bench.bench_config()
+def run_path(label, scene, frames, corners, config):
+    """One path through ``process`` on the headline clip, twice, with the
+    launch counts reset just before and read just after. Returns (launches,
+    counters of the last run)."""
     clahe_cuda.reset_launches()
     for run in range(2):
         t0 = time.perf_counter()
-        res = process(frames, path=str(OUT / f"run{run}"), config=config, known_corners=corners, device="cuda")
+        res = process(frames, path=str(OUT / f"{label}{run}"), config=config, known_corners=corners, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         c = res.metrics["counters"]
         vol_err = (res.volume - scene.volume) / scene.volume
         low = res.volume_confidence["low_confidence"]
-        print(f"run {run}: wall {wall:.3f} s ({HEADLINE_FRAMES / wall:.2f} fps)")
+        print(f"[{label}] run {run}: wall {wall:.3f} s ({HEADLINE_FRAMES / wall:.2f} fps)")
         print("  stages:", json.dumps({k: round(v, 4) for k, v in res.metrics["timings"].items()}))
-        print(f"  keyframes {c['keyframes']} points {len(res.points)} rmse {res.reprojection_rmse:.4f} "
-              f"volume {res.volume:.4f} carved {res.volume_carved:.4f} truth {scene.volume:.4f} "
-              f"err {vol_err:+.4f} confidence {json.dumps(res.volume_confidence)}")
+        print(f"  keyframes {c['keyframes']} of {c['keyframes_selected']} selected, points {len(res.points)} "
+              f"rmse {res.reprojection_rmse:.4f} volume {res.volume:.4f} carved {res.volume_carved:.4f} "
+              f"truth {scene.volume:.4f} err {vol_err:+.4f} confidence {json.dumps(res.volume_confidence)}")
+        print(f"  keyframe indices {c['keyframe_indices']}")
         print(f"  clahe_cuda.LAUNCHES {clahe_cuda.LAUNCHES}")
         if c["keyframes"] < 3 or len(res.points) < 500:
             raise AssertionError("too few keyframes or points")
@@ -150,9 +162,8 @@ def run_headline(dev):
             raise AssertionError(f"hull volume error {vol_err} outside {VOLUME_ERR_MAX}")
     launches = dict(clahe_cuda.LAUNCHES)
     if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    # The main path's CLAHE input: every keyframe, grey at half resolution.
-    return launches, (c["keyframes"], 1080 // config.pass2_downscale, 1920 // config.pass2_downscale)
+        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
+    return launches, c
 
 
 def main() -> int:
@@ -171,8 +182,34 @@ def main() -> int:
     err = {"clahe_lut": 0.0, "clahe_apply": 0.0}
     compare_kernels(dev, [((4, 540, 960), (8, 8)), ((2, 67, 120), (8, 8)), ((1, 64, 80), (4, 4))], err)
     ms, plain_ms = time_kernels(dev)
-    launches, main_shape = run_headline(dev)
-    compare_kernels(dev, [(main_shape, (8, 8))], err)
+
+    import bench
+
+    t0 = time.perf_counter()
+    scene, frames, corners = headline_clip(dev)
+    torch.cuda.synchronize()
+    print(f"rendered {frames.shape} in {time.perf_counter() - t0:.2f} s")
+    OUT.mkdir(parents=True, exist_ok=True)
+    config = bench.bench_config()
+
+    # Phase 4: known corners, host pass 1, grey enhance.
+    launches, c = run_path("known", scene, frames, corners, config)
+    # Its CLAHE input: every keyframe, grey at half resolution.
+    compare_kernels(dev, [((c["keyframes"], 1080 // config.pass2_downscale, 1920 // config.pass2_downscale), (8, 8))], err)
+
+    # Phase 5: the board-finding default path, video alone.
+    dconfig = detector_config(config)
+    launches_d, c = run_path("detector", scene, frames, None, dconfig)
+    for k in launches:
+        launches[k] += launches_d[k]
+    # Its two CLAHE inputs, rebuilt from the clip as the path builds them.
+    p1s, p2s = dconfig.pass1_downscale, dconfig.pass2_downscale
+    chunk = torch.from_numpy(native_ops.bgr_to_grey_down(frames[: dconfig.frame_chunk], p1s)).to(dev).float()
+    keyframes = np.ascontiguousarray(frames[c["keyframe_indices"]][:, ::p2s, ::p2s])
+    lab_l = color.bgr_to_lab(torch.from_numpy(keyframes).to(dev))[..., 0].contiguous()
+    compare_kernels(dev, [("pass-1 chunk", chunk), ("pass-2 LAB L", lab_l)], err)
+    time_kernels(dev, chunk)
+    time_kernels(dev, lab_l)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

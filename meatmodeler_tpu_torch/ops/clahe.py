@@ -15,7 +15,12 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["clahe", "clahe_reference", "lut_reference", "apply_reference", "tile_geometry"]
+from meatmodeler_tpu_torch.ops import color
+
+__all__ = [
+    "clahe", "clahe_reference", "lut_reference", "apply_reference", "tile_geometry",
+    "enhance_contrast_bgr", "enhanced_grey",
+]
 
 
 def tile_geometry(h: int, w: int, tiles: Tuple[int, int]):
@@ -118,3 +123,16 @@ def clahe_reference(
     flat = img.reshape(-1, h, w).to(torch.float32)
     out = apply_reference(flat, lut_reference(flat, clip_limit, tiles), tiles)
     return out.reshape(*batch_shape, h, w)
+
+
+def enhance_contrast_bgr(bgr: torch.Tensor, clip_limit: float = 3.5, tiles: Tuple[int, int] = (8, 8)) -> torch.Tensor:
+    """The reference's ``increaseContrast``: CLAHE on the L channel of LAB,
+    back to BGR. (..., H, W, 3) in, float32 (..., H, W, 3) out."""
+    lab = color.bgr_to_lab(bgr)
+    l_eq = clahe(lab[..., 0].contiguous(), clip_limit=clip_limit, tiles=tiles)
+    return color.lab_to_bgr(torch.cat([l_eq[..., None], lab[..., 1:]], dim=-1))
+
+
+def enhanced_grey(bgr: torch.Tensor, clip_limit: float = 3.5, tiles: Tuple[int, int] = (8, 8)) -> torch.Tensor:
+    """``increaseContrast`` then BT.601 grey: the pass-2 ``bgr_lab`` enhance."""
+    return color.bgr_to_grey(enhance_contrast_bgr(bgr, clip_limit, tiles))

@@ -1,24 +1,32 @@
 """End-to-end SfM + volume pipeline on one CUDA device — the ``process``
 entry point (torch twin of ``meatmodeler_tpu/pipeline.py``).
 
-The path is the reference's headline configuration (``bench.bench_config``):
+Two pass-1 implementations, chosen by ``config.pass1_backend`` as in the
+reference:
 
-  PASS 1 (host): the native C++ keyframe scan (``meatmodeler_tpu.io.
-    native_pass1``) selects keyframes; only they go to the device, as
-    half-resolution grey under ``pass2_enhance="grey"``.
-  PASS 2 (device): CLAHE (the hand-written CUDA kernels), ORB, Hamming
-    matching, the SoA track store.
+  PASS 1, "device" (the reference's default): host BGR->grey decimation,
+    one uint8 byte per downscaled pixel uploaded per chunk, CLAHE (the
+    hand-written CUDA kernels), then the keyframe scan on the device
+    (pyramidal LK + Shi-Tomasi reseeding). Without ``known_corners`` the
+    first board is hunted with the device chessboard detector; after the
+    pass every keyframe without corners runs through it in one batch, and
+    keyframes where it finds no board are dropped.
+  PASS 1, "host": the native C++ keyframe scan (``meatmodeler_tpu.io.
+    native_pass1``); its first-board hunt is cv2's, so it needs
+    ``known_corners`` here.
+  PASS 2 (device): the keyframes' enhance — CLAHE on the LAB lightness then
+    grey (``pass2_enhance="bgr_lab"``) or CLAHE on grey ("grey") — ORB,
+    Hamming matching, the SoA track store.
   GEOMETRY (device): sub-pixel corners, Zhang calibration, planar PnP,
     pose-only BA, triangulation + outlier gate, global Schur BA, hull +
     carve volume; then the PLY file.
 
-Board corners come from the caller (``known_corners``): board detection
-(cv2 or the reference's device detector) is not part of this package yet,
-and neither are the marker-free path, the device pass 1, the ``bgr_lab``
-enhancement and incremental BA — each raises rather than running
-something else. The reference's shape padding and bucketing, compile
-warm-up threads and single-buffer fetch packing exist only for the XLA
-compiler and its link, and have no counterpart here.
+Not part of this package yet, and raising rather than running something
+else: the cv2 board detectors (``detector="host"``/``"auto"`` without
+``known_corners``), the marker-free path, incremental BA. The reference's
+shape padding and bucketing, compile warm-up threads, pass-2 prefetch and
+resolver threads exist only for the XLA compiler and its link, and have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from meatmodeler_tpu.io import video as video_mod
 from meatmodeler_tpu_torch import tracks as tracks_mod
 from meatmodeler_tpu_torch import volume as volume_mod
 from meatmodeler_tpu_torch.geometry import calibration, distortion, pnp, projection, triangulation
-from meatmodeler_tpu_torch.ops import chessboard, clahe, matching, orb
+from meatmodeler_tpu_torch.ops import board_detect, chessboard, clahe, features, klt, matching, orb
 from meatmodeler_tpu_torch.solvers import bundle_adjust
 from meatmodeler_tpu_torch.utils import Metrics, numerics
 
@@ -75,20 +83,23 @@ class PreBA(NamedTuple):
 
 
 def _check_supported(config: PipelineConfig, known_corners) -> None:
-    if config.pass1_backend != "host":
-        raise NotImplementedError(
-            "pass1_backend='device' is not ported; use pass1_backend='host'"
-        )
-    if config.pass2_enhance != "grey":
-        raise NotImplementedError(
-            "pass2_enhance='bgr_lab' is not ported; use pass2_enhance='grey'"
-        )
     if config.incremental_ba:
         raise NotImplementedError("incremental_ba is not ported")
-    if known_corners is None:
-        raise ValueError(
-            "this package has no board detector yet: pass the per-frame board "
-            "corners as known_corners (T, N, 2)"
+    if known_corners is not None:
+        return
+    if config.assume_markerless:
+        raise NotImplementedError("assume_markerless: the marker-free path is not ported")
+    if config.pass1_backend == "host":
+        raise NotImplementedError(
+            "pass1_backend='host' hunts the first board with cv2, which this package "
+            "does not use: pass known_corners, or use pass1_backend='device' with "
+            "chessboard.detector='device'"
+        )
+    if config.chessboard.detector != "device":
+        raise NotImplementedError(
+            f"chessboard.detector={config.chessboard.detector!r} detects boards with cv2, "
+            "which this package does not use: set chessboard.detector='device' or pass "
+            "known_corners"
         )
 
 
@@ -102,47 +113,307 @@ def _make_device(device) -> torch.device:
 
 
 # --------------------------------------------------------------------------
-# PASS 1: native host keyframe scan
+# PASS 1, device: the keyframe scan
 # --------------------------------------------------------------------------
 
 
-def _run_pass1_host(video, config, pattern, known_corners, metrics):
+def _make_keyframe_scan(config: PipelineConfig):
+    """(init_carry, scan_chunk) for the device keyframe scan — the
+    reference's ``_make_keyframe_scan``.
+
+    The carry is (previous pyramid, points (K, 2), mask (K,), accumulated
+    error, accumulated displacement). The reference reseeds under
+    ``lax.cond(is_kf)``; here the reseed candidates of every frame of the
+    chunk come from one batched ``good_features`` call before the frame
+    loop and ``torch.where`` picks them on keyframes, so the loop never
+    reads a flag back to the host. Pyramids are built for the whole chunk
+    at once as well; each frame is independent of the scan state there.
+    """
+    kf = config.keyframe
+
+    def seed_points(greys):
+        c = features.good_features(
+            greys, max_corners=kf.max_corners, quality_level=kf.quality_level,
+            min_distance=kf.min_distance, block_size=kf.block_size,
+        )
+        return c.xy, c.mask
+
+    def init_carry(grey):
+        pts, mask = seed_points(grey)
+        zero = torch.zeros((), dtype=torch.float32, device=grey.device)
+        return (klt.build_pyramid(grey, kf.pyramid_levels), pts, mask, zero, zero)
+
+    def scan_chunk(carry, greys, width_scale=1):
+        # The keyframe rule compares an intensity residual against
+        # threshold * FULL-resolution width (or the constant threshold_abs).
+        width = greys.shape[2] * width_scale
+        thresh = kf.threshold_abs if kf.threshold_abs > 0 else kf.threshold * width
+        pyrs = klt.build_pyramid(greys, kf.pyramid_levels)
+        seed_xy, seed_mask = seed_points(greys)
+        prev_pyr, pts, mask, acc, acc_flow = carry
+        flags = []
+        for t in range(greys.shape[0]):
+            cur_pyr = [p[t] for p in pyrs]
+            flow = klt.lucas_kanade(
+                prev_pyr, cur_pyr, pts, win=kf.window, levels=kf.pyramid_levels,
+                max_iters=kf.max_iters, eps=kf.eps, point_mask=mask,
+            )
+            # The reference's error accumulation: NaN -> 0, negatives -> 0,
+            # then the mean over the live points.
+            err = torch.clamp(torch.nan_to_num(flow.error), min=0.0)
+            zeros = torch.zeros_like(err)
+            acc = acc + torch.sum(torch.where(mask, err, zeros)) / torch.clamp(mask.sum(), min=1)
+            # Secondary trigger: accumulated mean tracked displacement.
+            ok_flow = mask & flow.status
+            disp = torch.nan_to_num(torch.linalg.norm(flow.points - pts, dim=-1))
+            acc_flow = acc_flow + torch.sum(torch.where(ok_flow, disp, zeros)) / torch.clamp(ok_flow.sum(), min=1)
+            is_kf = acc > thresh
+            if kf.flow_threshold > 0:
+                is_kf = is_kf | (acc_flow > kf.flow_threshold * greys.shape[2])
+            # On a keyframe: reset the sums and reseed at this frame.
+            pts = torch.where(is_kf, seed_xy[t], flow.points)
+            mask = torch.where(is_kf, seed_mask[t], mask & flow.status)
+            acc = torch.where(is_kf, torch.zeros_like(acc), acc)
+            acc_flow = torch.where(is_kf, torch.zeros_like(acc_flow), acc_flow)
+            prev_pyr = cur_pyr
+            flags.append(is_kf)
+        return (prev_pyr, pts, mask, acc, acc_flow), torch.stack(flags)
+
+    return init_carry, scan_chunk
+
+
+# --------------------------------------------------------------------------
+# Board detection glue
+# --------------------------------------------------------------------------
+
+
+def _board_fit_residual(corners: np.ndarray, pattern) -> float:
+    """Max residual (px) of a planar-homography fit of the board grid: a
+    corner snapped to a neighbouring saddle shows as a multi-pixel outlier."""
+    cols, rows = pattern
+    gx, gy = np.meshgrid(np.arange(cols, dtype=np.float64), np.arange(rows, dtype=np.float64))
+    obj = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    img = np.asarray(corners, np.float64)
+    n = len(obj)
+    a = np.zeros((2 * n, 9))
+    a[0::2, 0:2] = obj
+    a[0::2, 2] = 1.0
+    a[0::2, 6:8] = -obj * img[:, :1]
+    a[0::2, 8] = -img[:, 0]
+    a[1::2, 3:5] = obj
+    a[1::2, 5] = 1.0
+    a[1::2, 6:8] = -obj * img[:, 1:2]
+    a[1::2, 8] = -img[:, 1]
+    h = np.linalg.svd(a)[2][-1].reshape(3, 3)
+    den = obj @ h[2, :2] + h[2, 2]
+    proj = (obj @ h[:2, :2].T + h[:2, 2]) / den[:, None]
+    return float(np.abs(proj - img).max())
+
+
+class _BoardProbe:
+    """Budget of the first-board hunt over board-free leading frames. Armed
+    only with the marker-free fallback on: after
+    ``config.board_probe_frames`` misses pass 1 stops and returns empty."""
+
+    def __init__(self, config: PipelineConfig, armed: bool):
+        self.enabled = armed and config.markerless_fallback and config.board_probe_frames > 0
+        self.budget = config.board_probe_frames
+        self.probed = 0
+
+    @property
+    def exhausted(self) -> bool:
+        return self.enabled and self.probed >= self.budget
+
+    def note_miss(self) -> None:
+        self.probed += 1
+
+
+def _detect_board_device_batch(smalls, pattern, scale, cb_cfg):
+    """The device detector over a stack of pass-1 greys, with ONE readback
+    for the whole stack. Returns canonicalized full-resolution corners, or
+    None where no board was found or the planar-fit gate rejects it."""
+    det = board_detect.find_chessboard_device(
+        smalls, pattern=tuple(pattern), max_candidates=cb_cfg.detect_candidates, tol=cb_cfg.detect_tol,
+    )
+    fused = torch.cat([det.ok.to(torch.float32)[:, None], det.corners.reshape(det.corners.shape[0], -1)], dim=1)
+    out = []
+    for row in fused.cpu().numpy():
+        if not row[0] > 0.5:
+            out.append(None)
+            continue
+        c = chessboard.canonicalize_corners(row[1:].reshape(-1, 2) * scale, pattern)
+        out.append(None if _board_fit_residual(c, pattern) > 3.0 * scale else c)
+    return out
+
+
+def _resolve_board_corners(kf_frames, kf_corners, kf_small, kf_indices, pattern, scale, cb_cfg):
+    """Post-pass board detection + sequential orientation anchoring.
+
+    Keyframes without corners go through the device detector as one batch;
+    those where it finds no board are dropped (processor.py:369-371). All
+    corners then get the 180-degree anchoring against the previous kept
+    keyframe. Returns (kept frames, kept corners, kept frame indices).
+    """
+    pending = [i for i, c in enumerate(kf_corners) if c is None]
+    found = {}
+    if pending:
+        stack = torch.stack([kf_small[i] for i in pending])
+        found = dict(zip(pending, _detect_board_device_batch(stack, pattern, scale, cb_cfg)))
+    out_frames, out_corners, out_indices = [], [], []
+    prev = None
+    for i, c in enumerate(kf_corners):
+        if c is None:
+            c = found[i]
+        if c is None:
+            continue
+        prev = chessboard.orient_corners_to(c, prev)
+        out_frames.append(kf_frames[i])
+        out_corners.append(prev)
+        out_indices.append(kf_indices[i])
+    return out_frames, out_corners, out_indices
+
+
+# --------------------------------------------------------------------------
+# PASS 1
+# --------------------------------------------------------------------------
+
+
+def _auto_scales(chunk, scale, p2s):
+    """Resolve the "auto" (0) pass-1 and pass-2 downscales on the first chunk."""
+    min_dim = min(chunk.shape[1], chunk.shape[2])
+    if scale == 0:
+        scale = 4 if min_dim >= 1060 else 2 if min_dim >= 720 else 1
+    if p2s == 0:
+        p2s = 2 if min_dim >= 1060 else 1
+    return scale, p2s
+
+
+def _known_board(known_corners, global_idx, pattern):
+    """The caller's board corners of one frame, canonicalized."""
+    return chessboard.canonicalize_corners(np.asarray(known_corners[global_idx], np.float32), pattern)
+
+
+def _keyframe_at_p2s(frame_bgr, config, p2s):
+    """A keyframe as pass 2 takes it: grey at 1/p2s (native decimation) for
+    ``pass2_enhance="grey"``, else BGR strided to 1/p2s."""
+    frame_bgr = np.asarray(frame_bgr)
+    if config.pass2_enhance == "grey":
+        return native_ops.bgr_to_grey_down(frame_bgr[None], p2s)[0]
+    oh, ow = frame_bgr.shape[0] // p2s, frame_bgr.shape[1] // p2s
+    return np.ascontiguousarray(frame_bgr[: oh * p2s : p2s, : ow * p2s : p2s])
+
+
+def _run_pass1(video, config, pattern, known_corners, metrics, device):
+    """The reference's device pass 1 (``_run_pass1``), without its
+    resolver thread, pass-2 prefetch and warm-up threads.
+
+    Per chunk: native BGR->grey decimation by ``pass1_downscale``, upload,
+    CLAHE, the keyframe scan, one flag readback. Until the scan has started
+    the chunk is hunted for the first board: frame 0 with
+    ``known_corners``, else the first frame where the device detector finds
+    one (``_BoardProbe`` bounds the hunt). Keyframes stay on the host at
+    the pass-2 resolution, with their device CLAHE'd small grey for the
+    post-pass detection.
+
+    Returns (kf_frames, kf_corners (known/bootstrap corners, else None),
+    kf_small, kf_indices, frames_total, pass-1 scale, pass-2 scale).
+    """
+    import time as _time
+
+    init_carry, scan_chunk = _make_keyframe_scan(config)
+    source = video_mod.FrameSource(video)
+    scale, p2s = config.pass1_downscale, config.pass2_downscale
+    with metrics.stage("pass1_keyframes"):
+        carry = None
+        frame_idx = 0
+        kf_frames, kf_corners, kf_small, kf_indices = [], [], [], []
+        probe = _BoardProbe(config, armed=known_corners is None)
+
+        def retain(frame_bgr, small, corners, global_idx):
+            kf_frames.append(_keyframe_at_p2s(frame_bgr, config, p2s))
+            kf_corners.append(corners)
+            kf_small.append(small)
+            kf_indices.append(int(global_idx))
+
+        for chunk in source.chunks(config.frame_chunk):
+            scale, p2s = _auto_scales(chunk, scale, p2s)
+            n = len(chunk)
+            t0 = _time.perf_counter()
+            grey_host = native_ops.bgr_to_grey_down(chunk, scale)
+            t1 = _time.perf_counter()
+            greys = clahe.clahe(torch.from_numpy(grey_host).to(device).to(torch.float32))
+            metrics.add("pass1_decim_s", t1 - t0)
+            metrics.add("pass1_upload_s", _time.perf_counter() - t1)
+
+            idx0 = frame_idx
+            frame_idx += n
+            offset = 0
+            if carry is None:
+                # Discard leading frames until the board is visible
+                # (processor.py:315-319), within the probe's budget.
+                start = None
+                if known_corners is not None:
+                    start = 0
+                    retain(chunk[0], greys[0], _known_board(known_corners, idx0, pattern), idx0)
+                else:
+                    for i, c0 in enumerate(_detect_board_device_batch(greys, pattern, scale, config.chessboard)):
+                        if c0 is not None:
+                            start = i
+                            retain(chunk[i], greys[i], c0, idx0 + i)
+                            break
+                        probe.note_miss()
+                if start is None:
+                    if probe.exhausted:
+                        metrics.count("board_probe_exhausted", probe.probed)
+                        break
+                    continue
+                carry = init_carry(greys[start])
+                offset = start + 1
+                if offset >= n:
+                    continue
+
+            t0 = _time.perf_counter()
+            # As in the reference, the scan runs over the whole chunk, the
+            # bootstrap frame and those before it included; their flags are
+            # dropped.
+            carry, flags_dev = scan_chunk(carry, greys, width_scale=scale)
+            t1 = _time.perf_counter()
+            flags = flags_dev.cpu().numpy()
+            flags[:offset] = False
+            metrics.add("pass1_scan_dispatch_s", t1 - t0)
+            metrics.add("pass1_sync_s", _time.perf_counter() - t1)
+            for i in np.nonzero(flags)[0]:
+                c = _known_board(known_corners, idx0 + int(i), pattern) if known_corners is not None else None
+                retain(chunk[i], greys[i], c, idx0 + int(i))
+
+        metrics.count("frames_total", frame_idx)
+        metrics.count("keyframes_selected", len(kf_frames))
+    return kf_frames, kf_corners, kf_small, kf_indices, frame_idx, scale, p2s or 1
+
+
+def _run_pass1_host(video, config, pattern, known_corners, metrics, device):
     """The reference's ``_run_pass1_host`` with known corners: the native
     C++ scan bootstraps at frame 0 and flags keyframes; each keyframe is
-    kept on the host at the pass-2 working resolution (grey).
-
-    Returns (kf_frames [host uint8 (h, w)], kf_corners, kf_indices,
-    frames_total, pass-2 scale).
-    """
+    kept on the host at the pass-2 working resolution. Same return tuple as
+    :func:`_run_pass1` (no small greys: every keyframe has its corners)."""
     import time as _time
 
     from meatmodeler_tpu.io.native_pass1 import HostPass1Scanner
 
     source = video_mod.FrameSource(video)
-    scale = config.pass1_downscale
-    p2s = config.pass2_downscale
+    scale, p2s = config.pass1_downscale, config.pass2_downscale
     with metrics.stage("pass1_keyframes"):
         frame_idx = 0
         kf_frames, kf_corners, kf_indices = [], [], []
         scanner = None
 
-        def known_of(global_idx):
-            return chessboard.canonicalize_corners(
-                np.asarray(known_corners[global_idx], np.float32), pattern
-            )
-
         def retain(frame_bgr, global_idx):
-            # Grey at the pass-2 resolution (FrameSource yields BGR chunks).
-            kf_frames.append(native_ops.bgr_to_grey_down(np.asarray(frame_bgr)[None], p2s)[0])
-            kf_corners.append(known_of(global_idx))
+            kf_frames.append(_keyframe_at_p2s(frame_bgr, config, p2s))
+            kf_corners.append(_known_board(known_corners, global_idx, pattern))
             kf_indices.append(int(global_idx))
 
         for chunk in source.chunks(config.frame_chunk):
-            min_dim = min(chunk.shape[1], chunk.shape[2])
-            if scale == 0:
-                scale = 4 if min_dim >= 1060 else 2 if min_dim >= 720 else 1
-            if p2s == 0:
-                p2s = 2 if min_dim >= 1060 else 1
+            scale, p2s = _auto_scales(chunk, scale, p2s)
             t_d0 = _time.perf_counter()
             grey_host = native_ops.bgr_to_grey_down(chunk, scale)
             metrics.add("pass1_decim_s", _time.perf_counter() - t_d0)
@@ -165,18 +436,7 @@ def _run_pass1_host(video, config, pattern, known_corners, metrics):
 
         metrics.count("frames_total", frame_idx)
         metrics.count("keyframes_selected", len(kf_frames))
-    return kf_frames, kf_corners, kf_indices, frame_idx, p2s or 1
-
-
-def _resolve_board_corners(kf_corners):
-    """Sequential 180-degree orientation anchoring of the (known) corners:
-    the known-corner branch of the reference's resolver, so every keyframe
-    is kept."""
-    out, prev = [], None
-    for c in kf_corners:
-        prev = chessboard.orient_corners_to(c, prev)
-        out.append(prev)
-    return out
+    return kf_frames, kf_corners, [], kf_indices, frame_idx, scale, p2s or 1
 
 
 # --------------------------------------------------------------------------
@@ -237,8 +497,12 @@ def _pass2_to_preba(config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_i
     if kf_stack is None:
         with metrics.stage("pass2_preprocess"):
             frames = torch.from_numpy(np.stack(kf_frames)).to(device)
-            # The reference's pass-2 grey enhance uses CLAHE's defaults.
-            kf_stack = clahe.clahe(frames.to(torch.float32))
+            # The reference's pass-2 enhances use CLAHE's defaults: grey
+            # keyframes get CLAHE, BGR ones ``bgr_lab`` (CLAHE on L, grey).
+            if frames.ndim == 3:
+                kf_stack = clahe.clahe(frames.to(torch.float32))
+            else:
+                kf_stack = clahe.enhanced_grey(frames)
     if ckpt.enabled and not ckpt.has("keyframes"):
         ckpt.save(
             "keyframes",
@@ -384,15 +648,24 @@ def _reconstruct_to_ba(video, config, known_corners, metrics, ckpt, device) -> P
         kf_indices = [int(i) for i in data["indices"]]
         metrics.count("frames_total", frame_idx)
     else:
-        kf_frames, kf_corners, kf_indices, frame_idx, p2s = _run_pass1_host(
-            video, config, pattern, known_corners, metrics
+        run_pass1 = _run_pass1_host if config.pass1_backend == "host" else _run_pass1
+        kf_frames, kf_corners, kf_small, kf_indices, frame_idx, scale, p2s = run_pass1(
+            video, config, pattern, known_corners, metrics, device
         )
         with metrics.stage("board_detect"):
-            kf_corners = _resolve_board_corners(kf_corners)
+            kf_frames, kf_corners, kf_indices = _resolve_board_corners(
+                kf_frames, kf_corners, kf_small, kf_indices, pattern, scale, config.chessboard
+            )
     n_kf = len(kf_corners)
     metrics.count("keyframes", n_kf)
     metrics.count("kf_scale", p2s)
     metrics.count("keyframe_indices", list(kf_indices))
+    if n_kf < 3 and config.markerless_fallback and known_corners is None:
+        raise NotImplementedError(
+            f"only {n_kf} keyframes with a board the device detector found; the "
+            "reference would now fall back to its marker-free path, which is not "
+            "ported (markerless_fallback=False makes this a ValueError)"
+        )
     if n_kf < 3:
         raise ValueError(
             f"only {n_kf} keyframes with a visible chessboard; need >= 3 (check "
@@ -424,9 +697,11 @@ def process(
     Args:
       video: path (video/.npy/.y4m) or (T, H, W[, 3]) uint8 array.
       path: output prefix for ``<path>Cloud.ply`` (skipped if None).
-      config: the config tree; this package runs ``pass1_backend="host"``
-        with ``pass2_enhance="grey"`` and batch BA.
-      known_corners: (T, N, 2) board corners per frame — required.
+      config: the config tree; batch BA only. Without ``known_corners``
+        it needs ``pass1_backend="device"`` and
+        ``chessboard.detector="device"``.
+      known_corners: optional (T, N, 2) board corners per frame; without
+        them the device detector finds the board.
       checkpoint_dir: per-stage npz artifacts; a re-run resumes after the
         keyframe stage.
     """

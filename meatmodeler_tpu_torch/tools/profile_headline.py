@@ -1,10 +1,18 @@
-"""Time and profile the port's headline run on one GPU.
+"""Time and profile the port's headline runs on one GPU.
 
     python3 -m meatmodeler_tpu_torch.tools.profile_headline [--warm-runs 10] [--out FILE]
 
 Run from the repo root (it imports ``bench.bench_config``). It renders the
 headline clip on the card (300 frames, 1920x1080, seed 0, with its
-ground-truth board corners) and runs ``process`` on it four ways:
+ground-truth board corners) and profiles two paths through ``process``:
+
+  known: ``bench.bench_config()`` (host C++ pass 1, grey pass-2 enhance)
+    with the renderer's board corners as ``known_corners``;
+  detector: the board-finding default path, ``detector_config`` of the
+    same config (device pass 1, ``bgr_lab`` enhance, the device chessboard
+    detector) with no ``known_corners``.
+
+Each path runs four ways:
 
   1. cold: the first ``process`` of the process (the CLAHE library is built
      first if it is missing);
@@ -16,12 +24,13 @@ ground-truth board corners) and runs ``process`` on it four ways:
      run's wall time (the profiler slows the host, so the share is a floor).
 
 One summary line per phase goes to stdout; everything goes as JSON to
-``--out`` (default ``build/profile_headline.json``).
+``--out`` (default ``build/profile_headline.json``), one entry per path.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -45,6 +54,16 @@ def headline_clip(device):
     scene = TurntableScene(image_size=(1920, 1080), focal=1500.0, noise_sigma=1.5)
     frames, _, corners = render_sequence(scene, HEADLINE_FRAMES, seed=0, backend="torch", device=device)
     return scene, frames, corners
+
+
+def detector_config(config):
+    """``config`` on the board-finding default path: the JAX package's
+    default pass 1 ("device") and pass-2 enhance ("bgr_lab"), and the
+    device chessboard detector."""
+    return dataclasses.replace(
+        config, pass1_backend="device", pass2_enhance="bgr_lab",
+        chessboard=dataclasses.replace(config.chessboard, detector="device"),
+    )
 
 
 def _timed_process(frames, corners, config):
@@ -72,6 +91,58 @@ def _device_busy(trace_path: Path):
     return busy / 1e3, kernels
 
 
+def profile_path(label, scene, frames, corners, config, warm_runs, report):
+    """The four runs of one path; fills ``report[label]``."""
+    rep = report[label] = {}
+    wall, res = _timed_process(frames, corners, config)
+    rep["cold"] = {"wall_s": wall, "stages": res.metrics["timings"]}
+    print(f"[{label}] cold: wall {wall} s stages {json.dumps(res.metrics['timings'])}")
+
+    walls = []
+    for _ in range(warm_runs):
+        wall, res = _timed_process(frames, corners, config)
+        walls.append(wall)
+    q = statistics.quantiles(walls, n=4) if len(walls) > 1 else [walls[0]] * 3
+    rep["warm"] = {
+        "wall_s": walls, "median_s": q[1], "q1_s": q[0], "q3_s": q[2],
+        "fps_at_median": HEADLINE_FRAMES / q[1],
+        "keyframes": res.metrics["counters"]["keyframes"], "points": len(res.points),
+        "rmse_px": res.reprojection_rmse,
+        "volume_err": (res.volume - scene.volume) / scene.volume,
+    }
+    print(f"[{label}] warm x{len(walls)}: median {q[1]} s (q1 {q[0]}, q3 {q[2]}), {HEADLINE_FRAMES / q[1]} fps; "
+          f"keyframes {rep['warm']['keyframes']} points {rep['warm']['points']} "
+          f"rmse {res.reprojection_rmse} volume err {rep['warm']['volume_err']}")
+
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["MEATMODELER_SYNC_STAGES"] = "1"
+    try:
+        wall, res = _timed_process(frames, corners, config)
+    finally:
+        del os.environ["MEATMODELER_SYNC_STAGES"]
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    # Pass 1's own split (decimation, upload, scan dispatch, flag sync, ...).
+    pass1 = {k: v for k, v in res.metrics["counters"].items() if k.startswith("pass1_") and k.endswith("_s")}
+    rep["synced"] = {"wall_s": wall, "stages": res.metrics["timings"], "pass1_split_s": pass1, "peak_alloc_mib": peak_mib}
+    print(f"[{label}] synced: wall {wall} s peak alloc {peak_mib} MiB stages {json.dumps(res.metrics['timings'])} "
+          f"pass1 split {json.dumps(pass1)}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        with torch.profiler.profile(activities=acts) as prof:
+            wall, _ = _timed_process(frames, corners, config)
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        busy_ms, kernels = _device_busy(trace)
+    rep["profiled"] = {
+        "wall_s": wall, "device_busy_ms": busy_ms, "busy_share": busy_ms / 1e3 / wall,
+        "kernel_launches": kernels,
+    }
+    print(f"[{label}] profiled: wall {wall} s device busy {busy_ms} ms share {busy_ms / 1e3 / wall} "
+          f"kernel launches {kernels}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--warm-runs", type=int, default=10)
@@ -91,52 +162,10 @@ def main(argv=None) -> int:
     scene, frames, corners = headline_clip("cuda")
     torch.cuda.synchronize()
     report["render_s"] = time.perf_counter() - t0
-    print(f"rendered {tuple(frames.shape)} in {report['render_s']} s")
+    print(f"rendered {tuple(frames.shape)} in {report['render_s']} s (library prebuilt: {report['library_prebuilt']})")
 
-    wall, res = _timed_process(frames, corners, config)
-    report["cold"] = {"wall_s": wall, "stages": res.metrics["timings"]}
-    print(f"cold: wall {wall} s (library prebuilt: {report['library_prebuilt']}) stages {json.dumps(res.metrics['timings'])}")
-
-    walls = []
-    for _ in range(args.warm_runs):
-        wall, res = _timed_process(frames, corners, config)
-        walls.append(wall)
-    q = statistics.quantiles(walls, n=4) if len(walls) > 1 else [walls[0]] * 3
-    report["warm"] = {
-        "wall_s": walls, "median_s": q[1], "q1_s": q[0], "q3_s": q[2],
-        "fps_at_median": HEADLINE_FRAMES / q[1],
-        "keyframes": res.metrics["counters"]["keyframes"], "points": len(res.points),
-        "rmse_px": res.reprojection_rmse,
-        "volume_err": (res.volume - scene.volume) / scene.volume,
-    }
-    print(f"warm x{len(walls)}: median {q[1]} s (q1 {q[0]}, q3 {q[2]}), {HEADLINE_FRAMES / q[1]} fps; "
-          f"keyframes {report['warm']['keyframes']} points {report['warm']['points']} "
-          f"rmse {res.reprojection_rmse} volume err {report['warm']['volume_err']}")
-
-    torch.cuda.reset_peak_memory_stats()
-    os.environ["MEATMODELER_SYNC_STAGES"] = "1"
-    try:
-        wall, res = _timed_process(frames, corners, config)
-    finally:
-        del os.environ["MEATMODELER_SYNC_STAGES"]
-    peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    report["synced"] = {"wall_s": wall, "stages": res.metrics["timings"], "peak_alloc_mib": peak_mib}
-    print(f"synced: wall {wall} s peak alloc {peak_mib} MiB stages {json.dumps(res.metrics['timings'])}")
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    (REPO / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        with torch.profiler.profile(activities=acts) as prof:
-            wall, _ = _timed_process(frames, corners, config)
-        trace = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        busy_ms, kernels = _device_busy(trace)
-    report["profiled"] = {
-        "wall_s": wall, "device_busy_ms": busy_ms, "busy_share": busy_ms / 1e3 / wall,
-        "kernel_launches": kernels,
-    }
-    print(f"profiled: wall {wall} s device busy {busy_ms} ms share {busy_ms / 1e3 / wall} "
-          f"kernel launches {kernels}")
+    profile_path("known", scene, frames, corners, config, args.warm_runs, report)
+    profile_path("detector", scene, frames, None, detector_config(config), args.warm_runs, report)
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -58,3 +58,56 @@ def test_cuda_kernels_reject_bad_input(cuda):
         clahe_cuda.clahe_lut(torch.zeros(1, 32, 64, device=cuda)[:, :, ::2], 3.5, (4, 4))
     with pytest.raises(ValueError, match="bad LUT"):
         clahe_cuda.clahe_apply(torch.zeros(1, 32, 32, device=cuda), torch.zeros(1, 8, 256, device=cuda), (4, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["grey_chunk", "lab_lightness"])
+def test_cuda_kernels_on_detector_path_inputs(cuda, source):
+    """The video-alone path's two CLAHE inputs: a pass-1 chunk of uint8
+    greys (32, 180, 320) and keyframes' non-integer LAB lightness."""
+    from meatmodeler_tpu_torch.ops import clahe_cuda, color
+
+    rng = np.random.default_rng(12)
+    if source == "grey_chunk":
+        img = torch.from_numpy(rng.integers(0, 256, size=(32, 180, 320)).astype(np.float32)).to(cuda)
+    else:
+        bgr = torch.from_numpy(rng.integers(0, 256, size=(3, 540, 960, 3)).astype(np.uint8)).to(cuda)
+        img = color.bgr_to_lab(bgr)[..., 0].contiguous()
+    lut = clahe_cuda.clahe_lut(img, 3.5, (8, 8))
+    lut_ref = tclahe.lut_reference(img, 3.5, (8, 8))
+    out = clahe_cuda.clahe_apply(img, lut_ref, (8, 8))
+    torch.cuda.synchronize()
+    assert torch.equal(lut, lut_ref)
+    torch.testing.assert_close(out, tclahe.apply_reference(img, lut_ref, (8, 8)), atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_detector_path_ops_on_cuda_match_cpu(cuda):
+    """Board detection, Shi-Tomasi corners and LK give the same answers on
+    the card as the CPU path the parity tests hold to the JAX package."""
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+    from meatmodeler_tpu_torch.ops import board_detect, chessboard, features, klt
+
+    frames, _, _ = render_sequence(TurntableScene(), 2, seed=1)
+    grey = torch.from_numpy((frames[..., 0] * 0.114 + frames[..., 1] * 0.587 + frames[..., 2] * 0.299).astype(np.float32))
+    det_c = board_detect.find_chessboard_device(grey)
+    det_g = board_detect.find_chessboard_device(grey.to(cuda))
+    assert det_g.ok.tolist() == det_c.ok.tolist() == [True, True]
+    for cg, cc in zip(det_g.corners.cpu().numpy(), det_c.corners.numpy()):
+        a, b = chessboard.canonicalize_corners(cg, (4, 3)), chessboard.canonicalize_corners(cc, (4, 3))
+        assert min(np.abs(a - b).max(), np.abs(a[::-1] - b).max()) <= 1e-3
+    gf_c = features.good_features(grey, max_corners=128)
+    gf_g = features.good_features(grey.to(cuda), max_corners=128)
+    assert torch.equal(gf_g.mask.cpu(), gf_c.mask)
+    assert torch.equal(gf_g.xy.cpu()[gf_c.mask], gf_c.xy[gf_c.mask])
+    pyr_c = [klt.build_pyramid(g, 4) for g in grey]
+    pyr_g = [[p.to(cuda) for p in pyr] for pyr in pyr_c]
+    flow_c = klt.lucas_kanade(pyr_c[0], pyr_c[1], gf_c.xy[0], win=15, levels=4, max_iters=10, point_mask=gf_c.mask[0])
+    flow_g = klt.lucas_kanade(pyr_g[0], pyr_g[1], gf_c.xy[0].to(cuda), win=15, levels=4, max_iters=10, point_mask=gf_c.mask[0].to(cuda))
+    assert torch.equal(flow_g.status.cpu(), flow_c.status)
+    # The card sums each window in another order. A point whose last update
+    # sits at the eps freeze threshold (0.01 px) can take or skip that one
+    # update, so single points agree to eps; the bulk agrees to rounding.
+    diff = (flow_g.points.cpu()[flow_c.status] - flow_c.points[flow_c.status]).abs()
+    assert float(diff.max()) <= 0.01
+    assert float(diff.median()) <= 1e-4

@@ -1,7 +1,8 @@
-"""The whole slice: the port's ``process(device="cpu")`` against the JAX
+"""The headline slice: the port's ``process(device="cpu")`` against the JAX
 ``process`` on the test-suite scene (400x300, 40 frames, seed 0) with its
 ground-truth corners, under the small test config plus the headline's
-``pass1_backend="host"`` and ``pass2_enhance="grey"``.
+``pass1_backend="host"`` and ``pass2_enhance="grey"``. The board-finding
+default path is ``test_torch_pipeline_device.py``.
 
 Bounds: identical keyframes (the host scan is shared), focal within 0.5%,
 rmse within 10%, point count within 5%, hull volume within 5%, and both
@@ -97,12 +98,17 @@ def test_resume_from_checkpoint(runs, clip):
 
 @pytest.mark.parametrize(
     "change",
-    [dict(pass1_backend="device"), dict(pass2_enhance="bgr_lab"), dict(incremental_ba=True)],
+    [dict(incremental_ba=True), dict(assume_markerless=True), dict(pass1_backend="host")],
 )
 def test_unported_options_raise(clip, change):
-    frames, corners = clip
+    """Without known corners, on the device detector: incremental BA, the
+    marker-free path and the host pass 1's cv2 board hunt are not ported."""
+    frames, _ = clip
+    config = dataclasses.replace(
+        CONFIG, chessboard=dataclasses.replace(CONFIG.chessboard, detector="device"), **change
+    )
     with pytest.raises(NotImplementedError):
-        torch_process(frames[:4], config=dataclasses.replace(CONFIG, **change), known_corners=corners, device="cpu")
+        torch_process(frames[:4], config=config, device="cpu")
 
 
 def test_tf32_settings_restored(clip):
@@ -120,5 +126,16 @@ def test_tf32_settings_restored(clip):
 
 
 def test_known_corners_required(clip):
-    with pytest.raises(ValueError, match="known_corners"):
-        torch_process(clip[0][:4], config=CONFIG, device="cpu")
+    """The default detector ("auto") detects boards with cv2, which the port
+    does not use: without known corners it raises and says so."""
+    config = dataclasses.replace(CONFIG, pass1_backend="device")
+    with pytest.raises(NotImplementedError, match="cv2"):
+        torch_process(clip[0][:4], config=config, device="cpu")
+
+
+def test_host_detector_needs_cv2(clip):
+    config = dataclasses.replace(
+        CONFIG, pass1_backend="device", chessboard=dataclasses.replace(CONFIG.chessboard, detector="host")
+    )
+    with pytest.raises(NotImplementedError, match="cv2"):
+        torch_process(clip[0][:4], config=config, device="cpu")

@@ -1,6 +1,7 @@
 """The headline profiling tool's host-side parts: the device-busy sum over a
 chrome trace, and its refusal to run without CUDA."""
 
+import dataclasses
 import json
 
 import pytest
@@ -41,3 +42,14 @@ def test_refuses_without_cuda(tmp_path):
     out = tmp_path / "report.json"
     assert profile_headline.main(["--warm-runs", "1", "--out", str(out)]) == 2
     assert not out.exists()
+
+
+def test_detector_config_is_the_default_path():
+    from meatmodeler_tpu.config import DEFAULT_CONFIG
+
+    base = dataclasses.replace(DEFAULT_CONFIG, pass1_backend="host", pass2_enhance="grey")
+    cfg = profile_headline.detector_config(base)
+    assert (cfg.pass1_backend, cfg.pass2_enhance, cfg.chessboard.detector) == ("device", "bgr_lab", "device")
+    assert (DEFAULT_CONFIG.pass1_backend, DEFAULT_CONFIG.pass2_enhance) == (cfg.pass1_backend, cfg.pass2_enhance)
+    assert cfg.keyframe == base.keyframe and cfg.chessboard.pattern == base.chessboard.pattern
+
