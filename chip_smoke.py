@@ -6,24 +6,28 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CLAHE kernels from ``meatmodeler_tpu_torch/csrc`` (nvcc),
      removing any library left from an earlier build first;
-  3. hold each kernel against its plain PyTorch version on the card
-     (max |diff| <= 1e-3) and time both (CUDA events, median of 25 warm
-     runs at (4, 540, 960); the JSON record carries these times);
+  3. hold each kernel against its plain PyTorch version on the card (the
+     LUT bit-exact, apply within 1e-4) on seeded images, a flat image, an
+     unaligned width under two tile grids and a two-tone board;
   4. render the headline clip (300 frames, 1080p) on the card and run
-     ``process`` with ``bench.bench_config()`` and the renderer's board
+     ``process`` with ``headline_config()`` and the renderer's board
      corners twice, with the launch counts reset just before; check the
      repo's accuracy bounds and that every kernel ran on this path; then
-     compare the kernels once more at the path's own CLAHE shape (all
-     keyframes, grey at 540x960);
+     compare the kernels once more at the path's own CLAHE input (all
+     keyframes, grey at 540x960) and time them there;
   5. the board-finding default path: the same clip through ``process`` with
-     ``detector_config(bench.bench_config())`` (device pass 1, ``bgr_lab``
+     ``detector_config(headline_config())`` (device pass 1, ``bgr_lab``
      enhance, device chessboard detector) and NO known corners, twice, with
      the launch counts reset just before; the same checks; then compare
-     the kernels at this path's two CLAHE inputs: the first pass-1 chunk
-     (32, 180, 320) and the keyframes' LAB lightness (n_kf, 540, 960),
-     and time both there too.
-The last two lines are a JSON record of the kernels (launches summed over
-both paths) and the device line.
+     the kernels at this path's two CLAHE inputs, the first pass-1 chunk
+     (32, 180, 320) and the keyframes' LAB lightness (n_kf, 540, 960), and
+     time them there too.
+Kernel times are device medians with a cold L2 and the host's launch time
+hidden (``tools/clahe_bench.time_ms``), each printed beside the bytes the
+kernel must move, its bound at the card's memory rate and the share of it
+reached. The last two lines are a JSON record of the kernels (launches
+summed over both paths; times, bound and share at the known path's
+keyframes) and the device line.
 Per-stage attribution, device busy share and the e2e spread come from
 ``python3 -m meatmodeler_tpu_torch.tools.profile_headline``.
 """
@@ -31,7 +35,6 @@ Per-stage attribution, device busy share and the e2e spread come from
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -40,15 +43,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from meatmodeler_tpu.io import native_ops
+from meatmodeler_tpu_torch.io import native_ops
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
 from meatmodeler_tpu_torch.ops import clahe_cuda, color
 from meatmodeler_tpu_torch.pipeline import process
-from meatmodeler_tpu_torch.tools.profile_headline import HEADLINE_FRAMES, detector_config, headline_clip
+from meatmodeler_tpu_torch.tools.clahe_bench import time_kernels
+from meatmodeler_tpu_torch.tools.profile_headline import (
+    HEADLINE_FRAMES,
+    detector_config,
+    headline_clip,
+    headline_config,
+)
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "build" / "chip_smoke"
-TOL = 1e-3
+APPLY_TOL = 1e-4  # the LUT must match exactly
 # The repo's own accuracy bounds for the headline clip (BENCH_r05.json,
 # robustness.bounds).
 RMSE_MAX_PX = 1.094
@@ -67,34 +76,11 @@ def _gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int = 25) -> float:
-    """Median warm time of fn() on the current stream, by CUDA events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def compare_kernels(dev, cases, err):
     """Each kernel against its plain version; raises on disagreement, folds
-    the max errors into ``err``. A case is (shape, tiles) for seeded
-    uint8-valued input, or (label, float32 image stack on the card)."""
-    rng = np.random.default_rng(0)
-    for case, arg in cases:
-        if isinstance(case, str):
-            img, tiles, label = arg, (8, 8), f"{case} {tuple(arg.shape)}"
-        else:
-            img = torch.from_numpy(rng.integers(0, 256, size=case).astype(np.float32)).to(dev)
-            tiles, label = arg, f"{case} tiles={arg}"
+    the max errors into ``err``. A case is (label, float32 image stack on
+    the card, tiles)."""
+    for label, img, tiles in cases:
         lut_k = clahe_cuda.clahe_lut(img, 3.5, tiles)
         lut_p = clahe_mod.lut_reference(img, 3.5, tiles)
         out_k = clahe_cuda.clahe_apply(img, lut_p, tiles)
@@ -103,33 +89,42 @@ def compare_kernels(dev, cases, err):
         torch.cuda.synchronize()
         e_lut = float((lut_k - lut_p).abs().max())
         e_app = max(float((out_k - out_p).abs().max()), float(whole))
-        print(f"kernel check {label}: lut max|d|={e_lut:.3g} apply max|d|={e_app:.3g}")
-        if not (e_lut <= TOL and e_app <= TOL):
+        print(f"kernel check {label} {tuple(img.shape)} tiles={tiles}: lut max|d|={e_lut:.3g} apply max|d|={e_app:.3g}")
+        if not (e_lut == 0.0 and e_app <= APPLY_TOL):
             raise AssertionError(f"CLAHE kernel disagrees with its plain version at {label}")
         err["clahe_lut"] = max(err["clahe_lut"], e_lut)
         err["clahe_apply"] = max(err["clahe_apply"], e_app)
 
 
-def time_kernels(dev, img=None):
-    """Warm median times of each kernel and its plain version on ``img``
-    (default: seeded uint8-valued (4, 540, 960))."""
-    if img is None:
-        rng = np.random.default_rng(1)
-        img = torch.from_numpy(rng.integers(0, 256, size=(4, 540, 960)).astype(np.float32)).to(dev)
-    lut = clahe_mod.lut_reference(img)
-    ms = {
-        "clahe_lut": _time_ms(lambda: clahe_cuda.clahe_lut(img, 3.5, (8, 8))),
-        "clahe_apply": _time_ms(lambda: clahe_cuda.clahe_apply(img, lut, (8, 8))),
-    }
-    plain_ms = {
-        "clahe_lut": _time_ms(lambda: clahe_mod.lut_reference(img)),
-        "clahe_apply": _time_ms(lambda: clahe_mod.apply_reference(img, lut)),
-    }
-    whole_k = _time_ms(lambda: clahe_mod.clahe(img))
-    whole_p = _time_ms(lambda: clahe_mod.clahe_reference(img))
-    print(f"CLAHE {tuple(img.shape)} warm median ms: kernels {ms} plain {plain_ms}; "
-          f"whole clahe kernels {whole_k:.4f} plain {whole_p:.4f}")
-    return ms, plain_ms
+def seeded_cases(dev):
+    """Seeded uint8-valued images and the kernels' edge cases."""
+    rng = np.random.default_rng(0)
+
+    def rand(shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape).astype(np.float32)).to(dev)
+
+    yy, xx = torch.meshgrid(torch.arange(540, device=dev), torch.arange(960, device=dev), indexing="ij")
+    board = torch.where((yy // 60 + xx // 60) % 2 == 0, 235.0, 20.0).expand(2, 540, 960).contiguous()
+    return [
+        ("seeded", rand((4, 540, 960)), (8, 8)),
+        ("seeded", rand((2, 67, 120)), (8, 8)),
+        ("seeded", rand((1, 64, 80)), (4, 4)),
+        ("flat", torch.full((3, 180, 320), 135.0, device=dev), (8, 8)),
+        ("unaligned", rand((2, 67, 121)), (8, 8)),
+        ("unaligned", rand((2, 67, 121)), (4, 4)),
+        ("two-tone board", board, (8, 8)),
+    ]
+
+
+def time_at(label, img, timings):
+    """Times of both kernels at ``img``, printed beside their bounds, kept
+    in ``timings[label]``."""
+    rows = timings[label] = time_kernels(img)
+    rows["shape"] = list(img.shape)
+    for name in KERNELS:
+        r = rows[name]
+        print(f"time {label} {tuple(img.shape)} {name}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f} ms), "
+              f"{r['bytes']} B, bound {r['bound_ms']:.6f} ms, share of bound {r['share']:.3f}")
 
 
 def run_path(label, scene, frames, corners, config):
@@ -180,22 +175,24 @@ def main() -> int:
     print(f"built {clahe_cuda.LIBRARY} in {time.perf_counter() - t0:.2f} s")
 
     err = {"clahe_lut": 0.0, "clahe_apply": 0.0}
-    compare_kernels(dev, [((4, 540, 960), (8, 8)), ((2, 67, 120), (8, 8)), ((1, 64, 80), (4, 4))], err)
-    ms, plain_ms = time_kernels(dev)
-
-    import bench
+    compare_kernels(dev, seeded_cases(dev), err)
 
     t0 = time.perf_counter()
     scene, frames, corners = headline_clip(dev)
     torch.cuda.synchronize()
     print(f"rendered {frames.shape} in {time.perf_counter() - t0:.2f} s")
     OUT.mkdir(parents=True, exist_ok=True)
-    config = bench.bench_config()
+    config = headline_config()
+    timings = {}
 
     # Phase 4: known corners, host pass 1, grey enhance.
     launches, c = run_path("known", scene, frames, corners, config)
     # Its CLAHE input: every keyframe, grey at half resolution.
-    compare_kernels(dev, [((c["keyframes"], 1080 // config.pass2_downscale, 1920 // config.pass2_downscale), (8, 8))], err)
+    p2s = config.pass2_downscale
+    keyframes = np.ascontiguousarray(frames[c["keyframe_indices"]])
+    grey = torch.from_numpy(native_ops.bgr_to_grey_down(keyframes, p2s)).to(dev).float()
+    compare_kernels(dev, [("known-path keyframes", grey, (8, 8))], err)
+    time_at("known-path keyframes", grey, timings)
 
     # Phase 5: the board-finding default path, video alone.
     dconfig = detector_config(config)
@@ -207,12 +204,14 @@ def main() -> int:
     chunk = torch.from_numpy(native_ops.bgr_to_grey_down(frames[: dconfig.frame_chunk], p1s)).to(dev).float()
     keyframes = np.ascontiguousarray(frames[c["keyframe_indices"]][:, ::p2s, ::p2s])
     lab_l = color.bgr_to_lab(torch.from_numpy(keyframes).to(dev))[..., 0].contiguous()
-    compare_kernels(dev, [("pass-1 chunk", chunk), ("pass-2 LAB L", lab_l)], err)
-    time_kernels(dev, chunk)
-    time_kernels(dev, lab_l)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    compare_kernels(dev, [("pass-1 chunk", chunk, (8, 8)), ("pass-2 LAB L", lab_l, (8, 8))], err)
+    time_at("pass-1 chunk", chunk, timings)
+    time_at("pass-2 LAB L", lab_l, timings)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "meatmodeler_tpu", "bench"))
+    if loaded:
+        raise AssertionError(f"the port loaded the JAX package or its bench: {loaded}")
 
+    main = timings["known-path keyframes"]
     record = {
         "kernels": [
             {
@@ -222,8 +221,13 @@ def main() -> int:
                 "replaces": KERNELS[name][0],
                 "launches": launches[name],
                 "max_abs_err": err[name],
-                "ms": ms[name],
-                "plain_ms": plain_ms[name],
+                "ms": main[name]["ms"],
+                "plain_ms": main[name]["plain_ms"],
+                "bound_ms": main[name]["bound_ms"],
+                "bound_by": "bytes",
+                "share": main[name]["share"],
+                "library_ms": None,  # no single PyTorch call computes a tile-LUT CLAHE
+                "at": main["shape"],
             }
             for name in KERNELS
         ]

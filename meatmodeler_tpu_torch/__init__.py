@@ -7,15 +7,17 @@ inputs. Plain tensor code is PyTorch; the JAX package's Pallas kernels are
 hand-written CUDA kernels for Hopper (``csrc/``), built with ``nvcc`` at
 first use.
 
-The package never imports JAX (nor OpenCV). It reuses the JAX package's
-JAX-free modules as they are: ``config``, ``io.video``, ``io.ply``,
-``io.native_ops``, ``io.native_pass1``, ``utils.checkpoint`` and the numpy
-parts of ``io.synthetic``.
+The package stands alone: it imports neither JAX nor OpenCV, and nothing
+of ``meatmodeler_tpu``, not even its modules that load no JAX. Where it
+needs such a module (``config``, the host ``io`` modules,
+``utils.checkpoint``, the numpy scene of ``io.synthetic``) it keeps its own
+copy, with the same names and behaviour; its host C++ libraries build from
+the repo's ``native/`` sources into ``build/meatmodeler_tpu_torch/``.
 """
 
 __version__ = "0.1.0"
 
-from meatmodeler_tpu.config import (  # noqa: F401
+from meatmodeler_tpu_torch.config import (  # noqa: F401
     DEFAULT_CONFIG,
     PipelineConfig,
 )

@@ -1,2 +1,3 @@
-"""Host I/O for the port: the synthetic renderer's torch backend. Video
-decoding and PLY files reuse ``meatmodeler_tpu.io.video`` / ``io.ply``."""
+"""Host I/O for the port: frame sources (arrays, ``.npy``, ``.y4m``), PLY
+files, the native C++ host ops and pass-1 scan, and the synthetic turntable
+renderer (numpy and torch backends)."""

@@ -11,9 +11,9 @@ reference:
     first board is hunted with the device chessboard detector; after the
     pass every keyframe without corners runs through it in one batch, and
     keyframes where it finds no board are dropped.
-  PASS 1, "host": the native C++ keyframe scan (``meatmodeler_tpu.io.
-    native_pass1``); its first-board hunt is cv2's, so it needs
-    ``known_corners`` here.
+  PASS 1, "host": the native C++ keyframe scan (``io.native_pass1``, built
+    from ``native/pass1.cpp``); the JAX package hunts its first board with
+    cv2, so here it needs ``known_corners``.
   PASS 2 (device): the keyframes' enhance — CLAHE on the LAB lightness then
     grey (``pass2_enhance="bgr_lab"``) or CLAHE on grey ("grey") — ORB,
     Hamming matching, the SoA track store.
@@ -37,16 +37,18 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from meatmodeler_tpu.config import DEFAULT_CONFIG, PipelineConfig
-from meatmodeler_tpu.io import native_ops
-from meatmodeler_tpu.io import ply as ply_mod
-from meatmodeler_tpu.io import video as video_mod
 from meatmodeler_tpu_torch import tracks as tracks_mod
 from meatmodeler_tpu_torch import volume as volume_mod
+from meatmodeler_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from meatmodeler_tpu_torch.geometry import calibration, distortion, pnp, projection, triangulation
+from meatmodeler_tpu_torch.io import native_ops
+from meatmodeler_tpu_torch.io import ply as ply_mod
+from meatmodeler_tpu_torch.io import video as video_mod
+from meatmodeler_tpu_torch.io.native_pass1 import HostPass1Scanner
 from meatmodeler_tpu_torch.ops import board_detect, chessboard, clahe, features, klt, matching, orb
 from meatmodeler_tpu_torch.solvers import bundle_adjust
 from meatmodeler_tpu_torch.utils import Metrics, numerics
+from meatmodeler_tpu_torch.utils.checkpoint import StageCheckpointer
 
 __all__ = ["ProcessResult", "process"]
 
@@ -398,8 +400,6 @@ def _run_pass1_host(video, config, pattern, known_corners, metrics, device):
     :func:`_run_pass1` (no small greys: every keyframe has its corners)."""
     import time as _time
 
-    from meatmodeler_tpu.io.native_pass1 import HostPass1Scanner
-
     source = video_mod.FrameSource(video)
     scale, p2s = config.pass1_downscale, config.pass2_downscale
     with metrics.stage("pass1_keyframes"):
@@ -695,7 +695,7 @@ def process(
     never moves to the CPU on its own (pass ``device="cpu"`` for that).
 
     Args:
-      video: path (video/.npy/.y4m) or (T, H, W[, 3]) uint8 array.
+      video: path (.npy/.y4m) or (T, H, W[, 3]) uint8 array.
       path: output prefix for ``<path>Cloud.ply`` (skipped if None).
       config: the config tree; batch BA only. Without ``known_corners``
         it needs ``pass1_backend="device"`` and
@@ -707,8 +707,6 @@ def process(
     """
     device = _make_device(device)
     _check_supported(config, known_corners)
-    from meatmodeler_tpu.utils.checkpoint import StageCheckpointer
-
     metrics = Metrics()
     ckpt = StageCheckpointer(checkpoint_dir)
     # Full float32 throughout the run: cuDNN would run the Sobel/box/Gaussian

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.func import jacfwd, vmap
 
-from meatmodeler_tpu.config import SolverConfig
+from meatmodeler_tpu_torch.config import SolverConfig
 from meatmodeler_tpu_torch.geometry import projection
 
 __all__ = ["BAProblem", "BAResult", "solve_ba", "adjust_points", "adjust_pose"]

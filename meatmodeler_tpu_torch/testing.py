@@ -1,5 +1,6 @@
-"""Shared helper for the parity tests: one seeded numpy input, handed to both
-frameworks in float32.
+"""Shared helpers for the parity tests: one seeded numpy input, handed to
+both frameworks in float32, and a config carried across from the JAX
+package's config classes (``from_fields``).
 
 The JAX side takes the numpy array as it is (``jnp.asarray`` keeps float32
 even with ``JAX_ENABLE_X64=1``, under which the test suite runs); the torch
@@ -8,12 +9,13 @@ side gets a float32 tensor. Integer inputs keep their dtype.
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["f32", "pair", "seeded_normal", "tt"]
+__all__ = ["f32", "from_fields", "pair", "seeded_normal", "tt"]
 
 
 def f32(x) -> np.ndarray:
@@ -36,3 +38,23 @@ def pair(x) -> Tuple[np.ndarray, torch.Tensor]:
 def seeded_normal(seed: int, shape, scale: float = 1.0) -> np.ndarray:
     """float32 normal draws from ``np.random.default_rng(seed)``."""
     return (np.random.default_rng(seed).normal(size=shape) * scale).astype(np.float32)
+
+
+def from_fields(obj, cls: Optional[type] = None):
+    """This package's config (``PipelineConfig`` or a sub-config) with the
+    field values of ``obj``: any object with the same fields, such as the
+    JAX package's config of the same name. ``cls`` defaults to the class of
+    this package's ``config`` module named like ``obj``'s type; nested
+    sub-configs are rebuilt the same way. This is how the parity tests hand
+    both packages one config.
+    """
+    from meatmodeler_tpu_torch import config as config_mod
+
+    cls = cls or getattr(config_mod, type(obj).__name__)
+    values = {}
+    for f in dataclasses.fields(cls):
+        value = getattr(obj, f.name)
+        if dataclasses.is_dataclass(f.default):
+            value = from_fields(value, type(f.default))
+        values[f.name] = value
+    return cls(**values)

@@ -2,11 +2,11 @@
 
     python3 -m meatmodeler_tpu_torch.tools.profile_headline [--warm-runs 10] [--out FILE]
 
-Run from the repo root (it imports ``bench.bench_config``). It renders the
-headline clip on the card (300 frames, 1920x1080, seed 0, with its
-ground-truth board corners) and profiles two paths through ``process``:
+It renders the headline clip on the card (300 frames, 1920x1080, seed 0,
+with its ground-truth board corners) and profiles two paths through
+``process``:
 
-  known: ``bench.bench_config()`` (host C++ pass 1, grey pass-2 enhance)
+  known: ``headline_config()`` (host C++ pass 1, grey pass-2 enhance)
     with the renderer's board corners as ``known_corners``;
   detector: the board-finding default path, ``detector_config`` of the
     same config (device pass 1, ``bgr_lab`` enhance, the device chessboard
@@ -41,6 +41,15 @@ from pathlib import Path
 
 import torch
 
+from meatmodeler_tpu_torch.config import (
+    DEFAULT_CONFIG,
+    KeyframeConfig,
+    MatcherConfig,
+    OrbConfig,
+    PipelineConfig,
+    TrackConfig,
+    VolumeConfig,
+)
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
 from meatmodeler_tpu_torch.ops import clahe_cuda
 from meatmodeler_tpu_torch.pipeline import process
@@ -50,10 +59,37 @@ HEADLINE_FRAMES = 300
 
 
 def headline_clip(device):
-    """The headline scene (``bench.py``'s) and its clip rendered on ``device``."""
+    """The headline scene (the JAX package's ``bench.py`` scene) and its clip
+    rendered on ``device``."""
     scene = TurntableScene(image_size=(1920, 1080), focal=1500.0, noise_sigma=1.5)
     frames, _, corners = render_sequence(scene, HEADLINE_FRAMES, seed=0, backend="torch", device=device)
     return scene, frames, corners
+
+
+def headline_config() -> PipelineConfig:
+    """The headline configuration: field for field the value of the JAX
+    package's ``bench.bench_config()`` (``bench.py:118-198``, where each
+    knob's measurement is noted), in this package's config classes.
+
+    Denser keyframes than the reference's 0.1 rule (the resolution-invariant
+    ``threshold_abs=96``, window 15, the displacement trigger 0.015); 4096
+    ORB features on 4 levels; 2048 matches per pair; 8192 tracks over at
+    most 64 keyframes, n-view triangulation, a 3 px track gate; a 64^3
+    carve with closing 0.015 and 0.9 view agreement; the host C++ pass 1 at
+    1/6 resolution; half-resolution grey keyframes."""
+    return dataclasses.replace(
+        DEFAULT_CONFIG,
+        keyframe=dataclasses.replace(KeyframeConfig(), threshold_abs=96.0, window=15, flow_threshold=0.015),
+        orb=OrbConfig(num_features=4096, num_levels=4),
+        matcher=MatcherConfig(max_matches=2048),
+        volume=dataclasses.replace(VolumeConfig(), carve_close_frac=0.015, carve_vote_frac=0.9, voxel_resolution=64),
+        tracks=TrackConfig(max_tracks=8192, max_keyframes=64, triangulation="nview", max_reproj_px=3.0),
+        frame_chunk=32,
+        pass1_backend="host",
+        pass1_downscale=6,
+        pass2_downscale=2,
+        pass2_enhance="grey",
+    )
 
 
 def detector_config(config):
@@ -151,10 +187,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_headline: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
-    import bench
-
-    config = bench.bench_config()
+    config = headline_config()
     report = {"device": torch.cuda.get_device_name(0), "frames": HEADLINE_FRAMES}
     report["library_prebuilt"] = clahe_cuda.LIBRARY.exists()
 

@@ -22,7 +22,7 @@ from meatmodeler_tpu.ops import chessboard as jcb
 from meatmodeler_tpu_torch import pipeline as tpipe
 from meatmodeler_tpu_torch.ops import board_detect as tbd
 from meatmodeler_tpu_torch.ops import chessboard as tcb
-from meatmodeler_tpu_torch.testing import pair
+from meatmodeler_tpu_torch.testing import from_fields, pair
 
 torch.set_num_threads(2)
 
@@ -117,7 +117,7 @@ def test_detect_board_device_batch_glue(rendered):
     greys_np, greys_t = pair(greys)
     cfg = jpipe.DEFAULT_CONFIG.chessboard
     ref = jpipe._detect_board_device_batch([jnp.asarray(g) for g in greys_np], PATTERN, 2, cfg)
-    got = tpipe._detect_board_device_batch(greys_t, PATTERN, 2, cfg)
+    got = tpipe._detect_board_device_batch(greys_t, PATTERN, 2, from_fields(cfg))
     assert [c is None for c in got] == [c is None for c in ref] == [False, False, False, True]
     for g, r, gt in zip(got[:3], ref[:3], corners_gt[:3]):
         assert _same_board(g, r) <= 2e-3

@@ -9,11 +9,11 @@ import torch
 
 import jax.numpy as jnp
 
-from meatmodeler_tpu.config import SolverConfig
+from meatmodeler_tpu.config import SolverConfig as JaxSolverConfig
 from meatmodeler_tpu.geometry import projection as jproj
 from meatmodeler_tpu.solvers import bundle_adjust as jba
 from meatmodeler_tpu_torch.solvers import bundle_adjust as tba
-from meatmodeler_tpu_torch.testing import f32, tt
+from meatmodeler_tpu_torch.testing import f32, from_fields, tt
 from test_bundle_adjust import make_problem
 
 torch.set_num_threads(2)
@@ -64,9 +64,9 @@ def test_adjust_pose_matches_jax():
     obs = np.asarray(jproj.project_points(jnp.asarray(board)[None], jnp.asarray(cams)[:, None], jnp.asarray(K)))
     obs = f32(obs + rng.normal(scale=0.3, size=obs.shape)).reshape(-1, 2)
     ext0 = f32(np.asarray(jproj.extrinsics_from_params(jnp.asarray(cams + f32(rng.normal(scale=0.02, size=cams.shape))))))
-    cfg = SolverConfig(ftol=1e-7, max_iters=100)
+    cfg = JaxSolverConfig(ftol=1e-7, max_iters=100)
     je, jr = jba.adjust_pose(jnp.asarray(ext0), jnp.asarray(K), jnp.asarray(obs), config=cfg)
-    te, tr = tba.adjust_pose(tt(ext0), tt(K), tt(obs), config=cfg)
+    te, tr = tba.adjust_pose(tt(ext0), tt(K), tt(obs), config=from_fields(cfg))
     np.testing.assert_allclose(float(tr.cost), float(jr.cost), rtol=1e-3)
     np.testing.assert_allclose(te.numpy(), np.asarray(je), atol=1e-3)
 
@@ -76,7 +76,7 @@ def test_point_sharding_is_refused():
     ext0 = f32(np.asarray(jproj.extrinsics_from_params(jnp.asarray(f32(cams0)))))
     with pytest.raises(ValueError, match="point_shard_devices"):
         tba.adjust_points(tt(ext0), tt(K), tt(pts0), tt(obs), fidx, pidx,
-                          config=SolverConfig(point_shard_devices=2))
+                          config=from_fields(JaxSolverConfig(point_shard_devices=2)))
     with pytest.raises(ValueError, match="too large for one device"):
         tba.adjust_points(tt(ext0), tt(K), tt(pts0), tt(obs), fidx, pidx,
-                          config=SolverConfig(hbm_strip_budget_bytes=1024))
+                          config=from_fields(JaxSolverConfig(hbm_strip_budget_bytes=1024)))

@@ -33,7 +33,7 @@ from meatmodeler_tpu_torch.ops import color as tcolor
 from meatmodeler_tpu_torch.ops import features as tfeat
 from meatmodeler_tpu_torch.ops import klt as tklt
 from meatmodeler_tpu_torch.pipeline import _make_keyframe_scan as torch_keyframe_scan
-from meatmodeler_tpu_torch.testing import pair, tt
+from meatmodeler_tpu_torch.testing import from_fields, pair, tt
 from test_pipeline import SCENE, TEST_CONFIG
 
 torch.set_num_threads(2)
@@ -133,7 +133,7 @@ def test_keyframe_scan_flags_identical():
     greys = tclahe.clahe_reference(torch.from_numpy(native_ops.bgr_to_grey_down(frames, 1)).to(torch.float32))
     greys_np, greys_t = pair(greys.numpy())
     j_init, j_scan = jax_keyframe_scan(TEST_CONFIG)
-    t_init, t_scan = torch_keyframe_scan(TEST_CONFIG)
+    t_init, t_scan = torch_keyframe_scan(from_fields(TEST_CONFIG))
     j_carry, t_carry = j_init(jnp.asarray(greys_np[0])), t_init(greys_t[0])
     flags_j, flags_t = [], []
     for i in range(0, 40, 8):

@@ -23,6 +23,23 @@ def cuda():
     return torch.device("cuda")
 
 
+def _check_kernels(img, tiles):
+    """LUT bit-exact, apply within 1e-4 of the plain versions; each wrapper
+    launched its kernel."""
+    from meatmodeler_tpu_torch.ops import clahe_cuda
+
+    before = dict(clahe_cuda.LAUNCHES)
+    lut = clahe_cuda.clahe_lut(img, 3.5, tiles)
+    lut_ref = tclahe.lut_reference(img, 3.5, tiles)
+    out = clahe_cuda.clahe_apply(img, lut_ref, tiles)
+    torch.cuda.synchronize()
+    # Integer counts: the LUTs are exact.
+    assert torch.equal(lut, lut_ref)
+    torch.testing.assert_close(out, tclahe.apply_reference(img, lut_ref, tiles), atol=1e-4, rtol=0)
+    assert clahe_cuda.LAUNCHES["clahe_lut"] == before["clahe_lut"] + 1
+    assert clahe_cuda.LAUNCHES["clahe_apply"] == before["clahe_apply"] + 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "shape,tiles", [((4, 540, 960), (8, 8)), ((2, 67, 120), (8, 8)), ((1, 64, 80), (4, 4))]
@@ -34,18 +51,50 @@ def test_cuda_kernels_match_reference(cuda, shape, tiles):
         np.random.default_rng(11).integers(0, 256, size=shape).astype(np.float32)
     ).to(cuda)
     before = dict(clahe_cuda.LAUNCHES)
-    lut = clahe_cuda.clahe_lut(img, 3.5, tiles)
-    lut_ref = tclahe.lut_reference(img, 3.5, tiles)
-    out = clahe_cuda.clahe_apply(img, lut_ref, tiles)
-    torch.cuda.synchronize()
-    # Integer counts: the LUTs are exact.
-    assert torch.equal(lut, lut_ref)
-    torch.testing.assert_close(out, tclahe.apply_reference(img, lut_ref, tiles), atol=1e-3, rtol=0)
+    _check_kernels(img, tiles)
     torch.testing.assert_close(
-        tclahe.clahe(img, tiles=tiles), tclahe.clahe_reference(img, tiles=tiles), atol=1e-3, rtol=0
+        tclahe.clahe(img, tiles=tiles), tclahe.clahe_reference(img, tiles=tiles), atol=1e-4, rtol=0
     )
     assert clahe_cuda.LAUNCHES["clahe_lut"] == before["clahe_lut"] + 2
     assert clahe_cuda.LAUNCHES["clahe_apply"] == before["clahe_apply"] + 2
+
+
+def _edge_image(case):
+    """(image as numpy float32, tiles) of one edge case of the kernels."""
+    rng = np.random.default_rng(13)
+    if case == "flat":
+        # One value everywhere: every lane of a warp in one bin, and the
+        # whole tile over the clip limit.
+        return np.full((3, 180, 320), 135.0, np.float32), (8, 8)
+    if case == "two_tone_checker":
+        yy, xx = np.mgrid[0:540, 0:960]
+        board = np.where(((yy // 60) + (xx // 60)) % 2 == 0, 235.0, 20.0)
+        return np.broadcast_to(board, (2, 540, 960)).astype(np.float32), (8, 8)
+    if case.startswith("unaligned"):
+        return rng.integers(0, 256, size=(2, 67, 121)).astype(np.float32), (8, 8) if case.endswith("8") else (4, 4)
+    if case == "out_of_range_and_halves":
+        # Below 0, above 255, and x.5 values (round half to even).
+        vals = np.concatenate([rng.uniform(-40, 300, 4000), np.arange(256) + 0.5, [-0.5, 255.5, 0.49999997]])
+        return rng.choice(vals, size=(2, 96, 128)).astype(np.float32), (8, 8)
+    if case == "several_small_tiles":
+        # 8x8-pixel tiles, a warp each: 25 tiles per image, so the last block
+        # of 8 tiles is partly empty.
+        return rng.integers(0, 256, size=(3, 40, 40)).astype(np.float32), (5, 5)
+    shape = {"keyframes": (22, 540, 960), "pass1_chunk": (32, 180, 320), "pass1_last_chunk": (12, 180, 320)}[case]
+    return rng.integers(0, 256, size=shape).astype(np.float32), (8, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case",
+    [
+        "flat", "two_tone_checker", "unaligned_tiles8", "unaligned_tiles4", "out_of_range_and_halves",
+        "several_small_tiles", "keyframes", "pass1_chunk", "pass1_last_chunk",
+    ],
+)
+def test_cuda_kernels_edge_cases(cuda, case):
+    img, tiles = _edge_image(case)
+    _check_kernels(torch.from_numpy(np.ascontiguousarray(img)).to(cuda), tiles)
 
 
 @pytest.mark.gpu
@@ -65,7 +114,7 @@ def test_cuda_kernels_reject_bad_input(cuda):
 def test_cuda_kernels_on_detector_path_inputs(cuda, source):
     """The video-alone path's two CLAHE inputs: a pass-1 chunk of uint8
     greys (32, 180, 320) and keyframes' non-integer LAB lightness."""
-    from meatmodeler_tpu_torch.ops import clahe_cuda, color
+    from meatmodeler_tpu_torch.ops import color
 
     rng = np.random.default_rng(12)
     if source == "grey_chunk":
@@ -73,12 +122,7 @@ def test_cuda_kernels_on_detector_path_inputs(cuda, source):
     else:
         bgr = torch.from_numpy(rng.integers(0, 256, size=(3, 540, 960, 3)).astype(np.uint8)).to(cuda)
         img = color.bgr_to_lab(bgr)[..., 0].contiguous()
-    lut = clahe_cuda.clahe_lut(img, 3.5, (8, 8))
-    lut_ref = tclahe.lut_reference(img, 3.5, (8, 8))
-    out = clahe_cuda.clahe_apply(img, lut_ref, (8, 8))
-    torch.cuda.synchronize()
-    assert torch.equal(lut, lut_ref)
-    torch.testing.assert_close(out, tclahe.apply_reference(img, lut_ref, (8, 8)), atol=1e-3, rtol=0)
+    _check_kernels(img, (8, 8))
 
 
 @pytest.mark.gpu

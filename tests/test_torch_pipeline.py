@@ -18,11 +18,14 @@ from meatmodeler_tpu.io import ply
 from meatmodeler_tpu.io.synthetic import render_sequence
 from meatmodeler_tpu.pipeline import process as jax_process
 from meatmodeler_tpu_torch.pipeline import process as torch_process
+from meatmodeler_tpu_torch.testing import from_fields
 from test_pipeline import SCENE, TEST_CONFIG
 
 torch.set_num_threads(2)
 
-CONFIG = dataclasses.replace(TEST_CONFIG, pass1_backend="host", pass2_enhance="grey")
+JAX_CONFIG = dataclasses.replace(TEST_CONFIG, pass1_backend="host", pass2_enhance="grey")
+# The same config in the port's own classes.
+CONFIG = from_fields(JAX_CONFIG)
 
 
 @pytest.fixture(scope="module")
@@ -35,7 +38,7 @@ def clip():
 def runs(clip, tmp_path_factory):
     frames, corners = clip
     out = tmp_path_factory.mktemp("slice")
-    res_j = jax_process(frames, path=str(out / "jax"), config=CONFIG, known_corners=corners)
+    res_j = jax_process(frames, path=str(out / "jax"), config=JAX_CONFIG, known_corners=corners)
     res_t = torch_process(
         frames, path=str(out / "torch"), config=CONFIG, known_corners=corners,
         device="cpu", checkpoint_dir=str(out / "ckpt"),

@@ -18,13 +18,16 @@ import torch
 from meatmodeler_tpu.io.synthetic import render_sequence
 from meatmodeler_tpu.pipeline import process as jax_process
 from meatmodeler_tpu_torch.pipeline import process as torch_process
+from meatmodeler_tpu_torch.testing import from_fields
 from test_pipeline import SCENE, TEST_CONFIG
 
 torch.set_num_threads(2)
 
-CONFIG = dataclasses.replace(
+JAX_CONFIG = dataclasses.replace(
     TEST_CONFIG, chessboard=dataclasses.replace(TEST_CONFIG.chessboard, detector="device")
 )
+# The same config in the port's own classes.
+CONFIG = from_fields(JAX_CONFIG)
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +40,7 @@ def clip():
 def runs(clip, tmp_path_factory):
     frames, _ = clip
     out = tmp_path_factory.mktemp("device_slice")
-    res_j = jax_process(frames, config=CONFIG)
+    res_j = jax_process(frames, config=JAX_CONFIG)
     res_t = torch_process(frames, config=CONFIG, device="cpu", checkpoint_dir=str(out / "ckpt"))
     return {"jax": res_j, "torch": res_t, "out": out}
 

@@ -45,8 +45,11 @@ def test_refuses_without_cuda(tmp_path):
 
 
 def test_detector_config_is_the_default_path():
-    from meatmodeler_tpu.config import DEFAULT_CONFIG
+    from meatmodeler_tpu.config import DEFAULT_CONFIG as JAX_DEFAULT
 
+    from meatmodeler_tpu_torch.testing import from_fields
+
+    DEFAULT_CONFIG = from_fields(JAX_DEFAULT)
     base = dataclasses.replace(DEFAULT_CONFIG, pass1_backend="host", pass2_enhance="grey")
     cfg = profile_headline.detector_config(base)
     assert (cfg.pass1_backend, cfg.pass2_enhance, cfg.chessboard.detector) == ("device", "bgr_lab", "device")
