@@ -21,12 +21,26 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      the launch counts reset just before; the same checks; then compare
      the kernels at this path's two CLAHE inputs, the first pass-1 chunk
      (32, 180, 320) and the keyframes' LAB lightness (n_kf, 540, 960), and
-     time them there too.
+     time them there too;
+  6. the marker-free path, at the width of the JAX package's marker-free
+     bench variant: its board-free clip (120 grey frames, 1280x720, seed 1)
+     rendered on the card, through ``process`` with ``markerless_config()``
+     twice (launch counts reset just before); each run must come out
+     marker-free with >= 3 keyframes, >= 100 finite points, a finite rmse
+     within the bound and a finite hull volume, and both kernels must have
+     launched; its pose and surface accuracy (Umeyama-aligned to the
+     renderer's poses) and ``pose_chain`` seconds are printed beside the JAX
+     package's record on this clip; then the automatic fallback, the same
+     clip once through ``detector_config(headline_config())`` with no
+     corners: the device hunt must give up (``board_probe_exhausted`` >=
+     ``board_probe_frames``) and the run come out marker-free; last, the
+     kernels at this path's keyframe input (n_kf, 360, 640), compared and
+     timed.
 Kernel times are device medians with a cold L2 and the host's launch time
 hidden (``tools/clahe_bench.time_ms``), each printed beside the bytes the
 kernel must move, its bound at the card's memory rate and the share of it
 reached. The last two lines are a JSON record of the kernels (launches
-summed over both paths; times, bound and share at the known path's
+summed over all paths; times, bound and share at the known path's
 keyframes) and the device line.
 Per-stage attribution, device busy share and the e2e spread come from
 ``python3 -m meatmodeler_tpu_torch.tools.profile_headline``.
@@ -53,6 +67,9 @@ from meatmodeler_tpu_torch.tools.profile_headline import (
     detector_config,
     headline_clip,
     headline_config,
+    markerless_accuracy,
+    markerless_clip,
+    markerless_config,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -62,6 +79,10 @@ APPLY_TOL = 1e-4  # the LUT must match exactly
 # robustness.bounds).
 RMSE_MAX_PX = 1.094
 VOLUME_ERR_MAX = 0.35
+# The JAX package's own record of its marker-free variant on the same clip
+# (BENCH_LAST_GOOD.json, "markerless"): accuracy, no times.
+JAX_MARKERLESS = {"keyframes": 6, "points": 565, "rmse_px": 0.6232, "aligned_pose_rmse_vs_ring": 0.2466,
+                  "point_surface_residual_median": 3.8924, "board_probe_exhausted": 64}
 KERNELS = {
     "clahe_lut": ("meatmodeler_tpu/ops/clahe_pallas.py:192", "_lut_kernel"),
     "clahe_apply": ("meatmodeler_tpu/ops/clahe_pallas.py:208", "_apply_kernel"),
@@ -161,6 +182,66 @@ def run_path(label, scene, frames, corners, config):
     return launches, c
 
 
+def run_markerless(scene, frames, poses):
+    """Phase 6's two ``markerless_config()`` runs, with the launch counts
+    reset just before and read just after. Returns (launches, counters)."""
+    config = markerless_config()
+    clahe_cuda.reset_launches()
+    for run in range(2):
+        t0 = time.perf_counter()
+        res = process(frames, path=str(OUT / f"markerless{run}"), config=config, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = res.metrics["counters"]
+        acc = markerless_accuracy(res, poses, scene)
+        print(f"[markerless] run {run}: wall {wall:.3f} s ({len(frames) / wall:.2f} fps)")
+        print("  stages:", json.dumps({k: round(v, 4) for k, v in res.metrics["timings"].items()}))
+        print(f"  keyframes {c['keyframes']} indices {c['keyframe_indices']} points {len(res.points)} "
+              f"rmse {res.reprojection_rmse:.4f} hull volume {res.volume:.6g} (gauge units) chain support "
+              f"{c['pose_chain_inliers']}")
+        print(f"  pose_chain {res.metrics['timings']['pose_chain']:.4f} s")
+        print(f"  aligned pose RMSE / ring {acc['aligned_pose_rmse_vs_ring']:.4f} (JAX package's record "
+              f"{JAX_MARKERLESS['aligned_pose_rmse_vs_ring']}; gauge scale {acc['gauge_scale']:.4f})")
+        print(f"  point-surface residual median {acc['point_surface_residual_median']:.4f} (JAX package's record "
+              f"{JAX_MARKERLESS['point_surface_residual_median']})")
+        print(f"  JAX package's record on this clip: {json.dumps(JAX_MARKERLESS)}")
+        print(f"  clahe_cuda.LAUNCHES {clahe_cuda.LAUNCHES}")
+        if c.get("markerless") is not True:
+            raise AssertionError("the marker-free path did not engage")
+        if c["keyframes"] < 3 or len(res.points) < 100:
+            raise AssertionError("too few keyframes or points")
+        if not np.isfinite(res.points).all() or res.points.shape[1] != 3:
+            raise AssertionError("non-finite or misshapen cloud")
+        if not (np.isfinite(res.reprojection_rmse) and res.reprojection_rmse <= RMSE_MAX_PX):
+            raise AssertionError(f"rmse {res.reprojection_rmse} outside {RMSE_MAX_PX}")
+        if not np.isfinite(res.volume):
+            raise AssertionError("non-finite hull volume")
+    launches = dict(clahe_cuda.LAUNCHES)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the markerless path never launched: {launches}")
+    return launches, c
+
+
+def run_fallback(frames):
+    """The automatic fallback on the device pass 1: no board anywhere, so
+    the hunt gives up and pass 1 runs again without the board gate."""
+    config = detector_config(headline_config())
+    t0 = time.perf_counter()
+    res = process(frames, config=config, device="cuda")
+    torch.cuda.synchronize()
+    c = res.metrics["counters"]
+    print(f"[fallback] wall {time.perf_counter() - t0:.3f} s, board_probe_exhausted "
+          f"{c.get('board_probe_exhausted')} (JAX package: {JAX_MARKERLESS['board_probe_exhausted']}: it counts "
+          f"whole {config.frame_chunk}-frame chunks), keyframes {c['keyframes']}, points {len(res.points)}, "
+          f"rmse {res.reprojection_rmse:.4f}")
+    if c.get("markerless") is not True:
+        raise AssertionError("the fallback did not engage")
+    if not c.get("board_probe_exhausted", 0) >= config.board_probe_frames:
+        raise AssertionError(f"board hunt stopped early: {c.get('board_probe_exhausted')}")
+    if not np.isfinite(res.reprojection_rmse):
+        raise AssertionError("fallback rmse is not finite")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -207,6 +288,27 @@ def main() -> int:
     compare_kernels(dev, [("pass-1 chunk", chunk, (8, 8)), ("pass-2 LAB L", lab_l, (8, 8))], err)
     time_at("pass-1 chunk", chunk, timings)
     time_at("pass-2 LAB L", lab_l, timings)
+    del frames, chunk, lab_l, keyframes, grey
+
+    # Phase 6: the marker-free path, and the automatic fallback.
+    t0 = time.perf_counter()
+    mscene, mframes, mposes = markerless_clip(dev)
+    print(f"rendered {mframes.shape} in {time.perf_counter() - t0:.2f} s")
+    launches_m, c = run_markerless(mscene, mframes, mposes)
+    for k in launches:
+        launches[k] += launches_m[k]
+    mconfig = markerless_config()
+    p2s = mconfig.pass2_downscale
+    kf_grey = np.ascontiguousarray(mframes[c["keyframe_indices"]])
+    kf_grey = torch.from_numpy(native_ops.bgr_to_grey_down(np.repeat(kf_grey[..., None], 3, axis=-1), p2s)).to(dev).float()
+    compare_kernels(dev, [("marker-free keyframes", kf_grey, (8, 8))], err)
+    time_at("marker-free keyframes", kf_grey, timings)
+    clahe_cuda.reset_launches()
+    run_fallback(mframes)
+    if min(clahe_cuda.LAUNCHES.values()) <= 0:
+        raise AssertionError(f"a kernel of the fallback path never launched: {clahe_cuda.LAUNCHES}")
+    for k in launches:
+        launches[k] += clahe_cuda.LAUNCHES[k]
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "meatmodeler_tpu", "bench"))
     if loaded:
         raise AssertionError(f"the port loaded the JAX package or its bench: {loaded}")

@@ -114,15 +114,22 @@ def lucas_kanade(
     max_iters: int = 30,
     eps: float = 0.01,
     point_mask: torch.Tensor | None = None,
+    initial_flow: torch.Tensor | None = None,
 ) -> FlowResult:
     """Track ``points`` (N, 2) (x, y) from the previous to the current frame
     through (H, W) pyramids from :func:`build_pyramid`; ``point_mask``
-    marks padding entries (they are tracked but never succeed)."""
+    marks padding entries (they are tracked but never succeed).
+    ``initial_flow``: optional (N, 2) full-resolution displacement guess
+    (cv2's OPTFLOW_USE_INITIAL_FLOW), e.g. descriptor-match offsets that LK
+    polishes to sub-pixel."""
     points = points.to(prev_pyr[0].dtype)
     if point_mask is None:
         point_mask = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
     levels = min(levels, len(prev_pyr))
-    d = torch.zeros_like(points)
+    if initial_flow is None:
+        d = torch.zeros_like(points)
+    else:
+        d = initial_flow.to(points.dtype) / 2.0 ** (levels - 1)
     ok_all = point_mask
     for lvl in range(levels - 1, -1, -1):
         d, ok = _lk_level(prev_pyr[lvl], curr_pyr[lvl], points / 2.0**lvl, d, win, max_iters, eps)

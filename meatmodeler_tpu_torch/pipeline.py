@@ -13,17 +13,23 @@ reference:
     keyframes where it finds no board are dropped.
   PASS 1, "host": the native C++ keyframe scan (``io.native_pass1``, built
     from ``native/pass1.cpp``); the JAX package hunts its first board with
-    cv2, so here it needs ``known_corners``.
+    cv2, so here it needs ``known_corners`` or ``assume_markerless``.
+  Both pass 1s run "marker-free" too, without the board gate: bootstrap at
+    frame 0 and keep keyframes without corners. That is the path of
+    ``assume_markerless``, and of the automatic fallback when the first
+    pass finds fewer than 3 board keyframes (``markerless_fallback``).
   PASS 2 (device): the keyframes' enhance — CLAHE on the LAB lightness then
     grey (``pass2_enhance="bgr_lab"``) or CLAHE on grey ("grey") — ORB,
     Hamming matching, the SoA track store.
   GEOMETRY (device): sub-pixel corners, Zhang calibration, planar PnP,
-    pose-only BA, triangulation + outlier gate, global Schur BA, hull +
-    carve volume; then the PLY file.
+    pose-only BA — or, marker-free, an assumed K and the keyframe pose
+    chain (LO-RANSAC bootstrap, PnP, in-chain BA; up to scale) — then
+    triangulation + outlier gate, global Schur BA (or incremental prefix
+    solves), hull + carve volume; then the PLY file.
 
-Not part of this package yet, and raising rather than running something
-else: the cv2 board detectors (``detector="host"``/``"auto"`` without
-``known_corners``), the marker-free path, incremental BA. The reference's
+Not part of this package, and raising rather than running something else:
+the cv2 board detectors (``detector="host"``/``"auto"`` without
+``known_corners``, and the host pass 1's board hunt). The reference's
 shape padding and bucketing, compile warm-up threads, pass-2 prefetch and
 resolver threads exist only for the XLA compiler and its link, and have no
 counterpart here.
@@ -31,6 +37,7 @@ counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -39,8 +46,8 @@ import torch
 
 from meatmodeler_tpu_torch import tracks as tracks_mod
 from meatmodeler_tpu_torch import volume as volume_mod
-from meatmodeler_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
-from meatmodeler_tpu_torch.geometry import calibration, distortion, pnp, projection, triangulation
+from meatmodeler_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig, SolverConfig
+from meatmodeler_tpu_torch.geometry import calibration, distortion, pnp, projection, ransac, so3, triangulation
 from meatmodeler_tpu_torch.io import native_ops
 from meatmodeler_tpu_torch.io import ply as ply_mod
 from meatmodeler_tpu_torch.io import video as video_mod
@@ -82,20 +89,18 @@ class PreBA(NamedTuple):
     point_parallax: torch.Tensor  # (P,) endpoint-ray parallax (deg)
     image_size: Tuple[int, int]  # (w, h) in pass-2 working resolution
     kf_scale: int = 1
+    # Marker-free reconstruction (assumed K, up to scale; no board plane).
+    markerless: bool = False
 
 
 def _check_supported(config: PipelineConfig, known_corners) -> None:
-    if config.incremental_ba:
-        raise NotImplementedError("incremental_ba is not ported")
-    if known_corners is not None:
+    if known_corners is not None or config.assume_markerless:
         return
-    if config.assume_markerless:
-        raise NotImplementedError("assume_markerless: the marker-free path is not ported")
     if config.pass1_backend == "host":
         raise NotImplementedError(
             "pass1_backend='host' hunts the first board with cv2, which this package "
-            "does not use: pass known_corners, or use pass1_backend='device' with "
-            "chessboard.detector='device'"
+            "does not use: pass known_corners, set assume_markerless, or use "
+            "pass1_backend='device' with chessboard.detector='device'"
         )
     if config.chessboard.detector != "device":
         raise NotImplementedError(
@@ -103,6 +108,21 @@ def _check_supported(config: PipelineConfig, known_corners) -> None:
             "which this package does not use: set chessboard.detector='device' or pass "
             "known_corners"
         )
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Full float32 inside the block: cuDNN would run the Sobel/box/Gaussian
+    convolutions, and cuBLAS the matmuls, in TF32 by default (the reference
+    pins HIGHEST precision for the same reason). The caller's settings come
+    back afterwards, also when the block raises."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _make_device(device) -> torch.device:
@@ -214,7 +234,8 @@ def _board_fit_residual(corners: np.ndarray, pattern) -> float:
 
 class _BoardProbe:
     """Budget of the first-board hunt over board-free leading frames. Armed
-    only with the marker-free fallback on: after
+    only with the marker-free fallback on (and not in a marker-free pass 1,
+    which hunts no board): after
     ``config.board_probe_frames`` misses pass 1 stops and returns empty."""
 
     def __init__(self, config: PipelineConfig, armed: bool):
@@ -305,14 +326,15 @@ def _keyframe_at_p2s(frame_bgr, config, p2s):
     return np.ascontiguousarray(frame_bgr[: oh * p2s : p2s, : ow * p2s : p2s])
 
 
-def _run_pass1(video, config, pattern, known_corners, metrics, device):
+def _run_pass1(video, config, pattern, known_corners, metrics, device, markerfree=False):
     """The reference's device pass 1 (``_run_pass1``), without its
     resolver thread, pass-2 prefetch and warm-up threads.
 
     Per chunk: native BGR->grey decimation by ``pass1_downscale``, upload,
     CLAHE, the keyframe scan, one flag readback. Until the scan has started
     the chunk is hunted for the first board: frame 0 with
-    ``known_corners``, else the first frame where the device detector finds
+    ``known_corners`` or ``markerfree`` (no board gate: keyframes keep
+    ``None`` corners), else the first frame where the device detector finds
     one (``_BoardProbe`` bounds the hunt). Keyframes stay on the host at
     the pass-2 resolution, with their device CLAHE'd small grey for the
     post-pass detection.
@@ -329,7 +351,7 @@ def _run_pass1(video, config, pattern, known_corners, metrics, device):
         carry = None
         frame_idx = 0
         kf_frames, kf_corners, kf_small, kf_indices = [], [], [], []
-        probe = _BoardProbe(config, armed=known_corners is None)
+        probe = _BoardProbe(config, armed=not markerfree and known_corners is None)
 
         def retain(frame_bgr, small, corners, global_idx):
             kf_frames.append(_keyframe_at_p2s(frame_bgr, config, p2s))
@@ -354,9 +376,10 @@ def _run_pass1(video, config, pattern, known_corners, metrics, device):
                 # Discard leading frames until the board is visible
                 # (processor.py:315-319), within the probe's budget.
                 start = None
-                if known_corners is not None:
+                if markerfree or known_corners is not None:
                     start = 0
-                    retain(chunk[0], greys[0], _known_board(known_corners, idx0, pattern), idx0)
+                    c0 = _known_board(known_corners, idx0, pattern) if known_corners is not None else None
+                    retain(chunk[0], greys[0], c0, idx0)
                 else:
                     for i, c0 in enumerate(_detect_board_device_batch(greys, pattern, scale, config.chessboard)):
                         if c0 is not None:
@@ -393,11 +416,13 @@ def _run_pass1(video, config, pattern, known_corners, metrics, device):
     return kf_frames, kf_corners, kf_small, kf_indices, frame_idx, scale, p2s or 1
 
 
-def _run_pass1_host(video, config, pattern, known_corners, metrics, device):
-    """The reference's ``_run_pass1_host`` with known corners: the native
-    C++ scan bootstraps at frame 0 and flags keyframes; each keyframe is
-    kept on the host at the pass-2 working resolution. Same return tuple as
-    :func:`_run_pass1` (no small greys: every keyframe has its corners)."""
+def _run_pass1_host(video, config, pattern, known_corners, metrics, device, markerfree=False):
+    """The reference's ``_run_pass1_host`` with known corners or
+    ``markerfree``: the native C++ scan bootstraps at frame 0 and flags
+    keyframes; each keyframe is kept on the host at the pass-2 working
+    resolution, with its known corners (``None`` when marker-free). Same
+    return tuple as :func:`_run_pass1` (no small greys: no keyframe goes
+    through the board detector)."""
     import time as _time
 
     source = video_mod.FrameSource(video)
@@ -409,7 +434,7 @@ def _run_pass1_host(video, config, pattern, known_corners, metrics, device):
 
         def retain(frame_bgr, global_idx):
             kf_frames.append(_keyframe_at_p2s(frame_bgr, config, p2s))
-            kf_corners.append(_known_board(known_corners, global_idx, pattern))
+            kf_corners.append(None if markerfree else _known_board(known_corners, global_idx, pattern))
             kf_indices.append(int(global_idx))
 
         for chunk in source.chunks(config.frame_chunk):
@@ -488,11 +513,173 @@ def _triangulate_gate(store, ext_refined, intr, dist_coefs, tri_mode, scale_fact
     return store, tri_valid & finite & inlier, torch.sum(finite & ~inlier), parallax_deg
 
 
-def _pass2_to_preba(config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_indices, frame_idx, p2s, device):
+# --------------------------------------------------------------------------
+# Marker-free pose bootstrap
+# --------------------------------------------------------------------------
+
+
+def _make_markerfree_stages(reproj_gate: float):
+    """(triangulate_known, pnp_support): masked n-view re-triangulation with
+    its validity gates, and reprojection support counting. Keyframes not yet
+    posed hold placeholder poses; masking their observations keeps them
+    inert."""
+
+    def triangulate_known(params, known_mask, coords, obs_mask, intr):
+        m = obs_mask & known_mask[None, :]
+        exts = projection.extrinsics_from_params(params)
+        pts3d = triangulation.triangulate_nview(projection.projection_from_extrinsic(intr, exts), coords, m)
+        finite = torch.all(torch.isfinite(pts3d), dim=1)
+        proj_all = projection.project_points(pts3d[:, None, :], params[None, :, :], intr)  # (T, F, 2)
+        resid = torch.linalg.norm(proj_all - coords, dim=-1)
+        resid_ok = torch.where(m, resid, torch.zeros_like(resid))
+        # Positive depth in every keyframe that observed the track.
+        cam_z = torch.einsum("fj,tj->tf", exts[:, 2, :3], pts3d) + exts[None, :, 2, 3]
+        in_front = torch.all(torch.where(m, cam_z > 1e-3, torch.ones_like(m)), dim=1)
+        valid = finite & in_front & (m.sum(1) >= 2) & (torch.amax(resid_ok, dim=1) < reproj_gate)
+        return torch.where(finite[:, None], pts3d, torch.zeros_like(pts3d)), valid
+
+    def pnp_support(poses, pts3d, xy, m, intr):
+        """(C,) candidate poses -> (C, T) tracks reprojecting within 2 gates."""
+        proj = projection.project_points(pts3d[None], poses[:, None, :], intr)
+        return m & (torch.linalg.norm(proj - xy, dim=-1) < 2.0 * reproj_gate)
+
+    return triangulate_known, pnp_support
+
+
+def _make_chain_step(reproj_gate: float, pose_cfg, chain_cfg):
+    """One incremental-chain step: masked re-triangulation -> 2-start PnP
+    -> outlier-trimmed re-solve -> masked warm-started BA over the keyframes
+    posed so far. The PnP winner is picked on the device; whether the
+    trimmed re-solve applies is the step's one host read (the reference
+    computes it always and selects by predicate: the same result)."""
+    triangulate_known, pnp_support = _make_markerfree_stages(reproj_gate)
+
+    def chain_step(params, known, lam, i, coords, obs_mask, obs_all, fidx_all, pidx_all, intr):
+        pts3d, valid3d = triangulate_known(params, known, coords, obs_mask, intr)
+        m = valid3d & obs_mask[:, i]
+        xy = coords[:, i]
+
+        # Constant-velocity SE(3) extrapolation E_pred = (E_{i-1} E_{i-2}^-1) E_{i-1}.
+        e1, e2 = projection.extrinsics_from_params(params[[i - 1, i - 2]], homogeneous=True)
+        e2inv = torch.eye(4, dtype=e2.dtype, device=e2.device)
+        e2inv[:3, :3] = e2[:3, :3].T
+        e2inv[:3, 3] = -e2[:3, :3].T @ e2[:3, 3]
+        e_pred = (e1 @ e2inv) @ e1
+        p_pred = torch.cat([so3.log(e_pred[:3, :3]), e_pred[:3, 3]])
+
+        # PnP from two starts, the previous pose and the extrapolation: the
+        # former alone biases LM toward a rotation-dominant basin on
+        # turntable motion. Both ride one batched solve.
+        starts = torch.stack([params[i - 1], p_pred])
+        cands = bundle_adjust.pose_only_refine(
+            starts, pts3d.expand(2, -1, -1), intr, xy.expand(2, -1, -1), m.expand(2, -1), config=pose_cfg
+        )
+        inl2 = pnp_support(cands, pts3d, xy, m, intr)
+        counts = inl2.sum(1)
+        best = torch.argmax(counts)
+        refined, inl = cands[best], inl2[best]
+        n_m, n_inl = m.sum(), counts[best]
+        if bool((n_inl >= 6) & (n_inl < n_m)):  # outlier-trimmed re-solve
+            refined = bundle_adjust.pose_only_refine(
+                refined[None], pts3d[None], intr, xy[None], inl[None], config=pose_cfg
+            )[0]
+        params = params.clone()
+        params[i] = refined
+        known = known.clone()
+        known[i] = True
+
+        # In-chain BA over keyframes 0..i, warm-started from the previous
+        # step's exit damping.
+        pts3d, valid3d = triangulate_known(params, known, coords, obs_mask, intr)
+        _, ext4, ba_res = bundle_adjust.adjust_points(
+            projection.extrinsics_from_params(params), intr, pts3d, obs_all, fidx_all, pidx_all,
+            mask=known[fidx_all], weights=valid3d[pidx_all].to(torch.float32),
+            config=chain_cfg, init_lambda=lam,
+        )
+        params = projection.params_from_extrinsics(ext4[:, :3, :])
+        lam = torch.clamp(ba_res.final_lambda * chain_cfg.lambda_down, max=chain_cfg.init_lambda)
+        return params, known, lam, n_m, n_inl
+
+    return chain_step
+
+
+def _chain_keyframe_poses(store, intrinsics, n_kf, reproj_gate: float = 4.0):
+    """Marker-free keyframe poses: essential bootstrap + PnP + in-chain BA
+    (the reference's ``_chain_keyframe_poses``).
+
+    The first keyframe pair is posed by the batched LO-RANSAC estimator
+    (``geometry/ransac.py``); its unit baseline sets the monocular gauge.
+    Every later keyframe is posed by PnP (a 2-start pose-only LM against
+    the tracks triangulated so far), and each addition is followed by a
+    masked, warm-started BA over everything posed so far: on a compact
+    scene pure PnP chaining would compound a slightly-off bootstrap into
+    every later pose. World frame = keyframe 0's camera, re-anchored after
+    the last step. The "< 6 visible tracks" gates are read in one fetch
+    after the loop, so a doomed video fails with the reference's error.
+
+    Returns ((F, 3, 4) extrinsics, per-step support counts: epipolar
+    inliers of the bootstrap pair, PnP inlier counts after).
+    """
+    k = intrinsics.to(torch.float32)
+    coords, obs_mask = store.coords, store.obs_mask
+    # Every observed (track, keyframe) cell, built once: keyframes not yet
+    # posed enter the in-chain BA masked.
+    pidx_all, fidx_all = torch.nonzero(obs_mask, as_tuple=True)
+    obs_all = coords[pidx_all, fidx_all]
+
+    sel01 = obs_mask[:, 0] & obs_mask[:, 1]
+    rvec, tvec, res = ransac.estimate_relative_pose(coords[:, 0], coords[:, 1], sel01, k)
+    n_inl = int((res.inliers & sel01).sum())
+    support = [n_inl]
+    if n_inl < 8:
+        raise ValueError(
+            f"marker-free pose bootstrap failed: keyframe pair (0, 1) has "
+            f"only {n_inl} epipolar inliers (< 8) — the video lacks "
+            "trackable structure or camera motion"
+        )
+
+    params = torch.zeros((coords.shape[1], 6), dtype=torch.float32, device=k.device)
+    params[1] = torch.cat([rvec, tvec])
+    # Placeholder for keyframes not yet posed: the last known pose.
+    params[2:] = params[1]
+    known = torch.zeros(coords.shape[1], dtype=torch.bool, device=k.device)
+    known[:2] = True
+
+    pose_cfg = dataclasses.replace(SolverConfig(), ftol=1e-8, max_iters=100)
+    # In-chain BA: a short budget per step (warm-started).
+    chain_cfg = dataclasses.replace(SolverConfig(), ftol=1e-6, max_iters=12)
+    chain_step = _make_chain_step(float(reproj_gate), pose_cfg, chain_cfg)
+    lam = torch.tensor(chain_cfg.init_lambda, dtype=torch.float32, device=k.device)
+    gates = []
+    for i in range(2, n_kf):
+        params, known, lam, n_m, n_inl_i = chain_step(
+            params, known, lam, i, coords, obs_mask, obs_all, fidx_all, pidx_all, k
+        )
+        gates.append(torch.stack([n_m, n_inl_i]))
+    if gates:
+        for step_off, (n_m_v, n_inl_v) in enumerate(torch.stack(gates).cpu().tolist()):
+            if n_m_v < 6:
+                raise ValueError(
+                    f"marker-free PnP chaining failed at keyframe {step_off + 2}: "
+                    f"only {n_m_v} triangulated tracks visible (< 6) — the "
+                    "video lacks persistent trackable structure across keyframes"
+                )
+            support.append(max(n_inl_v, 0))
+
+    # Re-anchor the gauge to keyframe 0: ext_i' = ext_i o ext_0^-1.
+    exts = projection.extrinsics_from_params(params[:n_kf])
+    r0, t0 = exts[0, :3, :3], exts[0, :3, 3]
+    r_new = exts[:, :3, :3] @ r0.T
+    t_new = exts[:, :3, 3] - torch.einsum("fij,j->fi", r_new, t0)
+    return torch.cat([r_new, t_new[:, :, None]], dim=2), support
+
+
+def _pass2_to_preba(config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_indices, frame_idx, p2s, markerless, device):
     """PASS 2 + geometry from the keyframes to the BA-ready problem.
     ``kf_stack`` (enhanced greys, from a checkpoint) or ``kf_frames`` (raw
-    host keyframes to upload and enhance here) must be given."""
-    pattern = config.chessboard.pattern
+    host keyframes to upload and enhance here) must be given. ``markerless``:
+    the keyframes carry no corners; K is assumed and the poses come from the
+    marker-free chain."""
     n_kf = len(kf_corners)
     if kf_stack is None:
         with metrics.stage("pass2_preprocess"):
@@ -507,7 +694,8 @@ def _pass2_to_preba(config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_i
         ckpt.save(
             "keyframes",
             greys=kf_stack.cpu().numpy(),
-            corners=np.stack(kf_corners),
+            # (n_kf, 0, 2) = the marker-free sentinel for resume.
+            corners=np.zeros((n_kf, 0, 2), np.float32) if markerless else np.stack(kf_corners),
             frames_total=frame_idx,
             kf_scale=p2s,
             indices=np.asarray(kf_indices, np.int64),
@@ -544,6 +732,30 @@ def _pass2_to_preba(config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_i
         metrics.count_async("tracks", store.used.sum())
 
     h, w = kf_stack.shape[1:]
+    if markerless:
+        ext_refined, intr, dist_coefs = _markerless_poses(config, metrics, store, n_kf, int(w), int(h), p2s, device)
+    else:
+        ext_refined, intr, dist_coefs = _board_poses(config, metrics, kf_stack, kf_corners, int(w), int(h), p2s, device)
+
+    with metrics.stage("triangulation"):
+        store, tri_valid, n_outlier, track_parallax = _triangulate_gate(
+            store, ext_refined, intr, dist_coefs, config.tracks.triangulation,
+            config.orb.scale_factor, config.tracks.min_parallax_deg,
+            reproj_gate=config.tracks.max_reproj_px / p2s,
+        )
+        metrics.count_async("triangulated", tri_valid.sum())
+        metrics.count_async("outlier_tracks_dropped", n_outlier)
+
+    return _finish_preba(
+        store, tri_valid, track_parallax, ext_refined, intr, dist_coefs,
+        (int(w), int(h)), p2s, float(config.orb.scale_factor), markerless,
+    )
+
+
+def _board_poses(config, metrics, kf_stack, kf_corners, w, h, p2s, device):
+    """Board geometry: sub-pixel corners, Zhang calibration, planar PnP and
+    pose-only BA. Returns (extrinsics (F, 3, 4), K, distortion (5,))."""
+    pattern = config.chessboard.pattern
     with metrics.stage("corner_refine"):
         # Corners are in full-resolution pixels; pass 2 works at 1/p2s.
         corners = torch.from_numpy(np.stack(kf_corners)).to(device) / p2s
@@ -582,23 +794,30 @@ def _pass2_to_preba(config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_i
         metrics.count_async("pose_ba_rmse_px", pose_ba_res.rmse)
         numerics.check_finite("pose_ba", extrinsics=ext_refined)
 
-    with metrics.stage("triangulation"):
-        store, tri_valid, n_outlier, track_parallax = _triangulate_gate(
-            store, ext_refined, intr, dist_coefs, config.tracks.triangulation,
-            config.orb.scale_factor, config.tracks.min_parallax_deg,
-            reproj_gate=config.tracks.max_reproj_px / p2s,
-        )
-        metrics.count_async("triangulated", tri_valid.sum())
-        metrics.count_async("outlier_tracks_dropped", n_outlier)
+    return ext_refined, intr, dist_coefs
 
-    return _finish_preba(
-        store, tri_valid, track_parallax, ext_refined, intr, dist_coefs,
-        (int(w), int(h)), p2s, float(config.orb.scale_factor),
+
+def _markerless_poses(config, metrics, store, n_kf, w, h, p2s, device):
+    """Marker-free geometry: an assumed pinhole K (``markerless_focal`` is in
+    full-resolution pixels, so it divides by the pass-2 downscale; without
+    it the prior 1.2 * max(w, h) of the working image), zero distortion, and
+    the keyframe pose chain. Output is up to scale."""
+    focal = config.markerless_focal / p2s if config.markerless_focal else 1.2 * max(w, h)
+    intr = torch.tensor(
+        [[focal, 0.0, w / 2.0], [0.0, focal, h / 2.0], [0.0, 0.0, 1.0]], dtype=torch.float32, device=device
     )
+    dist_coefs = torch.zeros(5, dtype=torch.float32, device=device)
+    with metrics.stage("pose_chain"):
+        ext_refined, chain_inliers = _chain_keyframe_poses(
+            store, intr, n_kf, reproj_gate=config.tracks.max_reproj_px / p2s
+        )
+        metrics.count("pose_chain_inliers", chain_inliers)
+        numerics.check_finite("pose_chain", extrinsics=ext_refined)
+    return ext_refined, intr, dist_coefs
 
 
 def _finish_preba(store, tri_valid, track_parallax, ext_refined, intr, dist_coefs,
-                  image_size, p2s, scale_factor) -> PreBA:
+                  image_size, p2s, scale_factor, markerless=False) -> PreBA:
     """BA observation lists from the track store: tracks with >= 2
     observations that passed the gate, their observations in track-major
     order, inverse-octave-sigma weights, per-point sigma and parallax."""
@@ -632,23 +851,38 @@ def _finish_preba(store, tri_valid, track_parallax, ext_refined, intr, dist_coef
         point_parallax=track_parallax[track_ids][tri_valid_t],
         image_size=image_size,
         kf_scale=p2s,
+        markerless=markerless,
     )
 
 
 def _reconstruct_to_ba(video, config, known_corners, metrics, ckpt, device) -> PreBA:
-    """PASS 1 + PASS 2 + geometry up to (not including) the global BA."""
+    """PASS 1 + PASS 2 + geometry up to (not including) the global BA.
+
+    The reference's branches: a keyframe checkpoint; ``assume_markerless``
+    (one marker-free pass 1, no board hunt); else the board-gated pass 1
+    and the board detection, and with fewer than 3 board keyframes and
+    ``markerless_fallback`` a second, marker-free pass 1."""
     pattern = config.chessboard.pattern
+    run_pass1 = _run_pass1_host if config.pass1_backend == "host" else _run_pass1
     kf_stack, kf_frames = None, []
+    markerless = False
     if ckpt.has("keyframes"):
         data = ckpt.load("keyframes")
         kf_stack = torch.from_numpy(data["greys"].astype(np.float32)).to(device)
-        kf_corners = list(data["corners"])
+        corners_arr = data["corners"]
+        markerless = corners_arr.shape[1] == 0  # the marker-free sentinel
+        kf_corners = [None] * len(corners_arr) if markerless else list(corners_arr)
         frame_idx = int(data["frames_total"])
         p2s = int(data["kf_scale"])
         kf_indices = [int(i) for i in data["indices"]]
         metrics.count("frames_total", frame_idx)
+    elif config.assume_markerless and known_corners is None:
+        # Caller-declared board-free video: no board hunt.
+        markerless = True
+        kf_frames, kf_corners, _, kf_indices, frame_idx, _, p2s = run_pass1(
+            video, config, pattern, None, metrics, device, markerfree=True
+        )
     else:
-        run_pass1 = _run_pass1_host if config.pass1_backend == "host" else _run_pass1
         kf_frames, kf_corners, kf_small, kf_indices, frame_idx, scale, p2s = run_pass1(
             video, config, pattern, known_corners, metrics, device
         )
@@ -656,27 +890,33 @@ def _reconstruct_to_ba(video, config, known_corners, metrics, ckpt, device) -> P
             kf_frames, kf_corners, kf_indices = _resolve_board_corners(
                 kf_frames, kf_corners, kf_small, kf_indices, pattern, scale, config.chessboard
             )
+        if len(kf_corners) < 3 and config.markerless_fallback and known_corners is None:
+            # Board-free video: keyframe selection again without the board
+            # gate; the poses come from the marker-free chain, up to scale.
+            markerless = True
+            kf_frames, kf_corners, _, kf_indices, frame_idx, _, p2s = run_pass1(
+                video, config, pattern, None, metrics, device, markerfree=True
+            )
     n_kf = len(kf_corners)
     metrics.count("keyframes", n_kf)
+    if markerless:
+        metrics.count("markerless", True)
     metrics.count("kf_scale", p2s)
     metrics.count("keyframe_indices", list(kf_indices))
-    if n_kf < 3 and config.markerless_fallback and known_corners is None:
-        raise NotImplementedError(
-            f"only {n_kf} keyframes with a board the device detector found; the "
-            "reference would now fall back to its marker-free path, which is not "
-            "ported (markerless_fallback=False makes this a ValueError)"
-        )
     if n_kf < 3:
         raise ValueError(
-            f"only {n_kf} keyframes with a visible chessboard; need >= 3 (check "
-            "the video shows the calibration target)"
+            f"only {n_kf} keyframes" + ("" if markerless else " with a visible chessboard")
+            + "; need >= 3 (check the video shows the calibration target, or enough "
+            "camera motion for the marker-free fallback)"
         )
     if n_kf > config.tracks.max_keyframes:
         raise ValueError(
             f"{n_kf} keyframes exceed tracks.max_keyframes={config.tracks.max_keyframes}; "
             "raise the capacity or the keyframe threshold"
         )
-    return _pass2_to_preba(config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_indices, frame_idx, p2s, device)
+    return _pass2_to_preba(
+        config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_indices, frame_idx, p2s, markerless, device
+    )
 
 
 def process(
@@ -697,11 +937,14 @@ def process(
     Args:
       video: path (.npy/.y4m) or (T, H, W[, 3]) uint8 array.
       path: output prefix for ``<path>Cloud.ply`` (skipped if None).
-      config: the config tree; batch BA only. Without ``known_corners``
-        it needs ``pass1_backend="device"`` and
+      config: the config tree. Without ``known_corners`` it needs
+        ``assume_markerless``, or ``pass1_backend="device"`` and
         ``chessboard.detector="device"``.
       known_corners: optional (T, N, 2) board corners per frame; without
-        them the device detector finds the board.
+        them the device detector finds the board, and a board-free video
+        takes the marker-free path (with ``markerless_fallback``): then the
+        reconstruction is up to scale and ``metrics["counters"]["markerless"]``
+        is set.
       checkpoint_dir: per-stage npz artifacts; a re-run resumes after the
         keyframe stage.
     """
@@ -709,18 +952,9 @@ def process(
     _check_supported(config, known_corners)
     metrics = Metrics()
     ckpt = StageCheckpointer(checkpoint_dir)
-    # Full float32 throughout the run: cuDNN would run the Sobel/box/Gaussian
-    # convolutions in TF32 by default (the reference pins HIGHEST precision
-    # for the same reason). The caller's settings come back afterwards.
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            pre = _reconstruct_to_ba(video, config, known_corners, metrics, ckpt, device)
-            return _solve_and_finish(pre, config, metrics, ckpt, path)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    with full_fp32(), torch.no_grad():
+        pre = _reconstruct_to_ba(video, config, known_corners, metrics, ckpt, device)
+        return _solve_and_finish(pre, config, metrics, ckpt, path)
 
 
 # --------------------------------------------------------------------------
@@ -773,10 +1007,12 @@ def _view_regime(ext4, points, item_mask):
     return torch.rad2deg(arc), elong
 
 
-def _estimate_volume(pts, intrinsics, ext4, image_size, config, point_sigma, point_parallax, kf_scale):
+def _estimate_volume(pts, intrinsics, ext4, image_size, config, point_sigma, point_parallax, kf_scale, use_plane=True):
     """Hull + carved volume of the gated item points. Returns a (6,) tensor
     [hull, carve, n_item, 0, view_arc_deg, elongation]; the caller applies
-    the too-few-points NaN rule."""
+    the too-few-points NaN rule. ``use_plane=False``: marker-free world
+    frame, no board plane to gate on (the volume is in the monocular
+    gauge's units^3)."""
     vc = config.volume
     valid = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
     pmask = valid
@@ -786,7 +1022,7 @@ def _estimate_volume(pts, intrinsics, ext4, image_size, config, point_sigma, poi
     if vc.min_parallax_deg > 0:
         certain = pmask & (point_parallax >= vc.min_parallax_deg)
         pmask = torch.where(certain.sum() >= 32, certain, pmask)
-    item_mask = volume_mod.split_item_points(pts, pmask, use_plane=True)
+    item_mask = volume_mod.split_item_points(pts, pmask, use_plane=use_plane)
     proj_new = projection.projection_from_extrinsic(intrinsics, ext4[:, :3, :])
     proj_mask = torch.ones(ext4.shape[0], dtype=torch.bool, device=pts.device)
     hull, carve = volume_mod.hull_and_carved_volume(
@@ -807,13 +1043,39 @@ def _estimate_volume(pts, intrinsics, ext4, image_size, config, point_sigma, poi
     )
 
 
-def _solve_and_finish(pre: PreBA, config, metrics, ckpt, path) -> ProcessResult:
-    """Global BA + volume + PLY from a PreBA."""
-    with metrics.stage("bundle_adjustment"):
-        new_pts, new_ext, ba_res = bundle_adjust.adjust_points(
-            pre.ext_refined, pre.intrinsics, pre.points, pre.obs, pre.fidx, pre.pidx,
-            weights=pre.obs_weight, config=config.solver,
+def _incremental_ba(pre: PreBA, solver_cfg, metrics):
+    """Online refinement (the reference's ``incremental_ba``): after each
+    keyframe, the BA over the observations of keyframes ``< k``, for k = 3..F;
+    the last prefix is the global problem. Each solve starts from the
+    previous one's parameters and exit damping, one notch down and capped at
+    ``init_lambda`` (an uncapped carry stops the next prefix after one tiny
+    step). Returns the last solve's (points, (F, 4, 4) extrinsics, result)."""
+    ext_cur, pts_cur, lam_cur = pre.ext_refined, pre.points, None
+    rmse_steps, iters_total = [], 0
+    for k in range(3, pre.ext_refined.shape[0] + 1):
+        pts_cur, ext4, ba_res = bundle_adjust.adjust_points(
+            ext_cur, pre.intrinsics, pts_cur, pre.obs, pre.fidx, pre.pidx,
+            mask=pre.fidx < k, weights=pre.obs_weight, config=solver_cfg, init_lambda=lam_cur,
         )
+        ext_cur = ext4[:, :3, :]
+        lam_cur = min(float(ba_res.final_lambda) * solver_cfg.lambda_down, solver_cfg.init_lambda)
+        rmse_steps.append(float(ba_res.rmse))
+        iters_total += int(ba_res.iterations)
+    metrics.count("ba_rmse_px_steps", rmse_steps)
+    metrics.count("ba_iterations_total", iters_total)
+    return pts_cur, ext4, ba_res
+
+
+def _solve_and_finish(pre: PreBA, config, metrics, ckpt, path) -> ProcessResult:
+    """Global BA (or incremental prefix solves) + volume + PLY from a PreBA."""
+    with metrics.stage("bundle_adjustment"):
+        if config.incremental_ba:
+            new_pts, new_ext, ba_res = _incremental_ba(pre, config.solver, metrics)
+        else:
+            new_pts, new_ext, ba_res = bundle_adjust.adjust_points(
+                pre.ext_refined, pre.intrinsics, pre.points, pre.obs, pre.fidx, pre.pidx,
+                weights=pre.obs_weight, config=config.solver,
+            )
         metrics.count_async("ba_rmse_px", ba_res.rmse)
         metrics.count("ba_iterations", ba_res.iterations)
         numerics.check_finite("bundle_adjustment", points=new_pts, extrinsics=new_ext)
@@ -829,7 +1091,7 @@ def _solve_and_finish(pre: PreBA, config, metrics, ckpt, path) -> ProcessResult:
     with metrics.stage("volume"):
         fused = _estimate_volume(
             new_pts, pre.intrinsics, new_ext, pre.image_size, config,
-            pre.point_sigma, pre.point_parallax, pre.kf_scale,
+            pre.point_sigma, pre.point_parallax, pre.kf_scale, use_plane=not pre.markerless,
         ).cpu().numpy()
 
     new_pts_np = new_pts.cpu().numpy()

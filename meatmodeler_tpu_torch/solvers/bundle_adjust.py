@@ -22,7 +22,7 @@ from torch.func import jacfwd, vmap
 from meatmodeler_tpu_torch.config import SolverConfig
 from meatmodeler_tpu_torch.geometry import projection
 
-__all__ = ["BAProblem", "BAResult", "solve_ba", "adjust_points", "adjust_pose"]
+__all__ = ["BAProblem", "BAResult", "solve_ba", "adjust_points", "adjust_pose", "pose_only_refine"]
 
 
 class BAProblem(NamedTuple):
@@ -76,7 +76,7 @@ def _solve_normal_equations(problem: BAProblem, lam, jc, jp, r, fix_points: bool
 
     Returns (delta_cam (F,6), delta_pt (P,3)). ``fix_points`` (the pose-only
     problem): W = V = 0, the camera system is block-diagonal and
-    delta_p = 0 exactly.
+    delta_p = 0 exactly; there ``lam`` may hold one damping per camera.
     """
     f = problem.cam_params.shape[0]
     p = problem.points.shape[0]
@@ -84,6 +84,7 @@ def _solve_normal_equations(problem: BAProblem, lam, jc, jp, r, fix_points: bool
     u = _segment_sum(torch.einsum("nri,nrj->nij", jc, jc), fidx, f)
     b_c = -_segment_sum(torch.einsum("nri,nr->ni", jc, r), fidx, f)
     eye6 = torch.eye(6, dtype=u.dtype, device=u.device)
+    lam = lam if lam.ndim == 0 else lam[:, None, None]  # one damping, or one per camera
     u_d = u + lam * (u * eye6 + 1e-8 * eye6)
     # Unobserved cameras: identity block, so their rows decouple and solve to 0.
     u_trace = torch.einsum("fii->f", u)
@@ -128,30 +129,58 @@ def _cost(problem, cam, pts):
     return 0.5 * torch.sum(r * r)
 
 
-def solve_ba(
-    problem: BAProblem,
-    config: SolverConfig = SolverConfig(),
-    fix_points: bool = False,
-) -> BAResult:
-    """Schur-complement LM until the ftol rule fires or max_iters."""
+def _canonical(problem: BAProblem) -> BAProblem:
+    """One float dtype for every float field (mixed f32/f64 inputs)."""
     dtype = torch.promote_types(
         torch.promote_types(problem.cam_params.dtype, problem.points.dtype),
         torch.promote_types(problem.obs.dtype, problem.intrinsics.dtype),
     )
-    problem = problem._replace(
+    return problem._replace(
         cam_params=problem.cam_params.to(dtype),
         points=problem.points.to(dtype),
         intrinsics=problem.intrinsics.to(dtype),
         obs=problem.obs.to(dtype),
         weight=None if problem.weight is None else problem.weight.to(dtype),
     )
-    device = problem.cam_params.device
-    n_valid = torch.clamp(problem.mask.sum(), min=1)
-    lam_up2 = config.lambda_up * config.lambda_up
 
+
+def _lm_decision(config: SolverConfig, cost, lam, c1, c2):
+    """The LM acceptance rule, elementwise over problems: of the two trial
+    steps (damping ``lam`` and ``lam * lambda_up**2``) take the cheaper; keep
+    it if it lowers the cost. Returns (use the first trial, improved, new
+    cost, new damping, done by the ftol rule or an exploded damping)."""
+    lam_up2 = config.lambda_up * config.lambda_up
+    use1 = c1 <= c2
+    cand_cost = torch.where(use1, c1, c2)
+    cand_lam = torch.where(use1, lam * config.lambda_down, lam * lam_up2)
+    improved = cand_cost < cost
+    new_cost = torch.where(improved, cand_cost, cost)
+    rel = (cost - new_cost) / torch.clamp(cost, min=1e-30)
+    done = (improved & (rel < config.ftol)) | (~improved & (lam >= 1e10))
+    new_lam = torch.clamp(torch.where(improved, cand_lam, lam * lam_up2), 1e-12, 1e12)
+    return use1, improved, new_cost, new_lam, done
+
+
+def solve_ba(
+    problem: BAProblem,
+    config: SolverConfig = SolverConfig(),
+    fix_points: bool = False,
+    init_lambda=None,
+) -> BAResult:
+    """Schur-complement LM until the ftol rule fires or max_iters.
+
+    ``init_lambda``: optional damping to start from instead of
+    ``config.init_lambda`` (a float or a 0-d tensor, read on the device):
+    warm-starting a grown prefix of the same problem from the previous
+    solve's ``final_lambda`` skips the damping walk-down.
+    """
+    problem = _canonical(problem)
+    n_valid = torch.clamp(problem.mask.sum(), min=1)
     cam, pts = problem.cam_params, problem.points
     cost = _cost(problem, cam, pts)
-    lam = torch.tensor(config.init_lambda, dtype=dtype, device=device)
+    lam = torch.as_tensor(
+        config.init_lambda if init_lambda is None else init_lambda, dtype=cam.dtype, device=cam.device
+    )
     it = 0
     while it < config.max_iters:
         r = _residuals(
@@ -171,21 +200,11 @@ def solve_ba(
             return cam + dc, pts + dp, _cost(problem, cam + dc, pts + dp)
 
         c1_cam, c1_pts, c1 = attempt(lam)
-        c2_cam, c2_pts, c2 = attempt(lam * lam_up2)
-        use1 = c1 <= c2
-        cand_cam = torch.where(use1, c1_cam, c2_cam)
-        cand_pts = torch.where(use1, c1_pts, c2_pts)
-        cand_cost = torch.where(use1, c1, c2)
-        cand_lam = torch.where(use1, lam * config.lambda_down, lam * lam_up2)
-
-        improved = cand_cost < cost
-        new_cost = torch.where(improved, cand_cost, cost)
-        rel = (cost - new_cost) / torch.clamp(cost, min=1e-30)
-        done = (improved & (rel < config.ftol)) | (~improved & (lam >= 1e10))
-        cam = torch.where(improved, cand_cam, cam)
-        pts = torch.where(improved, cand_pts, pts)
-        lam = torch.clamp(torch.where(improved, cand_lam, lam * lam_up2), 1e-12, 1e12)
-        cost = new_cost
+        c2_cam, c2_pts, c2 = attempt(lam * config.lambda_up**2)
+        use1, improved, cost, new_lam, done = _lm_decision(config, cost, lam, c1, c2)
+        cam = torch.where(improved, torch.where(use1, c1_cam, c2_cam), cam)
+        pts = torch.where(improved, torch.where(use1, c1_pts, c2_pts), pts)
+        lam = new_lam
         it += 1
         if bool(done):  # the one host read per iteration
             break
@@ -229,9 +248,11 @@ def adjust_points(
     mask: Optional[torch.Tensor] = None,
     weights: Optional[torch.Tensor] = None,
     config: SolverConfig = SolverConfig(),
+    init_lambda=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, BAResult]:
     """Full BA over cameras and points. Returns refined (P, 3) points,
-    (F, 4, 4) homogeneous extrinsics and the solver stats."""
+    (F, 4, 4) homogeneous extrinsics and the solver stats.
+    ``init_lambda``: optional damping warm start (see :func:`solve_ba`)."""
     device = extrinsics.device
     points_3d = points_3d.reshape(-1, 3)
     points_2d = points_2d.reshape(-1, 2)
@@ -253,7 +274,7 @@ def adjust_points(
         mask=mask,
         weight=weights,
     )
-    result = solve_ba(problem, config=config)
+    result = solve_ba(problem, config=config, init_lambda=init_lambda)
     new_ext = projection.extrinsics_from_params(result.cam_params, homogeneous=True)
     return result.points, new_ext, result
 
@@ -296,3 +317,75 @@ def adjust_pose(
     )
     result = solve_ba(problem, config=config, fix_points=True)
     return projection.extrinsics_from_params(result.cam_params), result
+
+
+def pose_only_refine(
+    cam_params: torch.Tensor,
+    points_3d: torch.Tensor,
+    intrinsics: torch.Tensor,
+    obs: torch.Tensor,
+    mask: torch.Tensor,
+    config: SolverConfig = SolverConfig(),
+) -> torch.Tensor:
+    """(B,) independent 6-dof LM pose solves against fixed points, batched.
+
+    ``cam_params`` (B, 6); ``points_3d`` (B, N, 3), ``obs`` (B, N, 2) and
+    ``mask`` (B, N) per problem. Each problem keeps its own damping, cost
+    and stop, as the reference's ``vmap`` of one ``while_loop`` does: every
+    iteration steps all problems and freezes those already done, and the
+    loop ends when none is left (one host read per iteration). Folding them
+    into one joint solve would stop them all at the same point.
+    """
+    b, n = obs.shape[:2]
+    device = obs.device
+    problem = _canonical(
+        BAProblem(
+            cam_params=cam_params,
+            points=points_3d.reshape(-1, 3),
+            intrinsics=intrinsics,
+            obs=obs.reshape(-1, 2),
+            frame_idx=torch.arange(b, device=device).repeat_interleave(n),
+            point_idx=torch.arange(b * n, device=device),
+            mask=mask.reshape(-1),
+        )
+    )
+
+    def residuals(cam):
+        return _residuals(
+            cam, problem.points, problem.intrinsics, problem.obs, problem.frame_idx,
+            problem.point_idx, problem.mask,
+        )
+
+    def costs(cam):  # (B,) 0.5 * sum r^2 per problem
+        r = residuals(cam)
+        return 0.5 * torch.sum((r * r).reshape(b, -1), dim=1)
+
+    cam = problem.cam_params
+    cost = costs(cam)
+    lam = torch.full((b,), config.init_lambda, dtype=cam.dtype, device=device)
+    it = torch.zeros(b, dtype=torch.int64, device=device)
+    active = torch.full((b,), config.max_iters > 0, dtype=torch.bool, device=device)
+    while config.max_iters > 0:
+        r = residuals(cam)
+        jc, jp = _obs_jacobians(
+            cam, problem.points, problem.intrinsics, problem.obs, problem.frame_idx,
+            problem.point_idx, problem.mask,
+        )
+
+        def attempt(lam_try):
+            dc, _ = _solve_normal_equations(problem._replace(cam_params=cam), lam_try, jc, jp, r, fix_points=True)
+            return cam + dc, costs(cam + dc)
+
+        c1_cam, c1 = attempt(lam)
+        c2_cam, c2 = attempt(lam * config.lambda_up**2)
+        use1, improved, new_cost, new_lam, done = _lm_decision(config, cost, lam, c1, c2)
+        new_cam = torch.where(improved[:, None], torch.where(use1[:, None], c1_cam, c2_cam), cam)
+        # Problems that have stopped keep their state.
+        cam = torch.where(active[:, None], new_cam, cam)
+        cost = torch.where(active, new_cost, cost)
+        lam = torch.where(active, new_lam, lam)
+        it = it + active.to(torch.int64)
+        active = active & ~done & (it < config.max_iters)
+        if not bool(active.any()):  # the one host read per iteration
+            break
+    return cam

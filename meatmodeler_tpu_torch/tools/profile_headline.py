@@ -1,6 +1,7 @@
 """Time and profile the port's headline runs on one GPU.
 
     python3 -m meatmodeler_tpu_torch.tools.profile_headline [--warm-runs 10] [--out FILE]
+        [--paths known,detector,markerless]
 
 It renders the headline clip on the card (300 frames, 1920x1080, seed 0,
 with its ground-truth board corners) and profiles two paths through
@@ -10,7 +11,15 @@ with its ground-truth board corners) and profiles two paths through
     with the renderer's board corners as ``known_corners``;
   detector: the board-finding default path, ``detector_config`` of the
     same config (device pass 1, ``bgr_lab`` enhance, the device chessboard
-    detector) with no ``known_corners``.
+    detector) with no ``known_corners``;
+
+and then the board-free clip (``markerless_clip``: 120 grey frames,
+1280x720, seed 1) through a third:
+
+  markerless: ``markerless_config()`` (``assume_markerless``, the host pass
+    1 at /4, the pose chain instead of the board geometry); its accuracy
+    comes from ``markerless_accuracy`` against the renderer's poses, and its
+    host syncs are counted (``count_host_syncs``).
 
 Each path runs four ways:
 
@@ -37,8 +46,10 @@ import statistics
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from meatmodeler_tpu_torch.config import (
@@ -50,12 +61,17 @@ from meatmodeler_tpu_torch.config import (
     TrackConfig,
     VolumeConfig,
 )
+from meatmodeler_tpu_torch import pipeline
+from meatmodeler_tpu_torch.geometry import so3
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
 from meatmodeler_tpu_torch.ops import clahe_cuda
 from meatmodeler_tpu_torch.pipeline import process
+from meatmodeler_tpu_torch.solvers import bundle_adjust
+from meatmodeler_tpu_torch.utils.alignment import umeyama
 
 REPO = Path(__file__).resolve().parents[2]
 HEADLINE_FRAMES = 300
+MARKERLESS_FRAMES = 120
 
 
 def headline_clip(device):
@@ -90,6 +106,105 @@ def headline_config() -> PipelineConfig:
         pass2_downscale=2,
         pass2_enhance="grey",
     )
+
+
+def markerless_clip(device):
+    """The JAX package's marker-free bench scene (``bench.markerless_scene``:
+    1280x720, focal 1000, noise 1.0, no board, a textured ground sheet) and
+    its 120-frame clip, seed 1, rendered grey on ``device``. Returns (scene,
+    frames (T, H, W) uint8, ground-truth poses (T, 6))."""
+    scene = TurntableScene(
+        image_size=(1280, 720), focal=1000.0, noise_sigma=1.0, show_board=False, ground_texture=12.0
+    )
+    frames, poses, _ = render_sequence(scene, MARKERLESS_FRAMES, seed=1, color=False, backend="torch", device=device)
+    return scene, frames, poses
+
+
+def markerless_config() -> PipelineConfig:
+    """``headline_config()`` as the JAX package's marker-free bench variant
+    sets it (``bench.py:678-696``): pass 1 at /4 for 720p, no displacement
+    trigger (the chain needs per-pair baseline), ``assume_markerless`` with
+    the assumed focal prior (``markerless_focal=0``)."""
+    config = headline_config()
+    return dataclasses.replace(
+        config,
+        pass1_downscale=4,
+        keyframe=dataclasses.replace(config.keyframe, flow_threshold=0.0),
+        assume_markerless=True,
+        markerless_focal=0.0,
+    )
+
+
+def _pose_anchors(rot: np.ndarray, tvec: np.ndarray, d: float) -> np.ndarray:
+    """Three alignment anchors per camera: center, +forward*d, +down*d."""
+    c = -rot.T @ tvec
+    return np.stack([c, c + rot.T @ np.array([0.0, 0.0, 1.0]) * d, c + rot.T @ np.array([0.0, 1.0, 0.0]) * d])
+
+
+def markerless_accuracy(res, gt_poses, scene) -> dict:
+    """The JAX package's marker-free accuracy (``bench.py:726-753``): the
+    keyframe poses' anchors Umeyama-aligned to the renderer's, their RMSE
+    absolute and relative to the camera-ring radius, and the median and p90
+    distance of the aligned points to the nearest true surface (ellipsoid or
+    ground plane), in units of the ellipsoid's semi-axes."""
+    kf_idx = res.metrics["counters"]["keyframe_indices"]
+    ext = res.extrinsics
+    d = scene.ring_radius / 3.0
+    src = np.concatenate([_pose_anchors(ext[i, :3, :3], ext[i, :3, 3], d) for i in range(len(ext))])
+    gt = np.asarray(gt_poses, np.float64)[kf_idx]
+    rots = so3.exp(torch.from_numpy(gt[:, :3])).numpy()
+    dst = np.concatenate([_pose_anchors(r, p[3:], d) for r, p in zip(rots, gt)])
+    tf = umeyama(src, dst)
+    r = tf.apply(src) - dst
+    pose_rmse = float(np.sqrt((r * r).sum(axis=1).mean()))
+    pts = tf.apply(res.points)
+    c, ax = np.array(scene.ellipsoid_center), np.array(scene.ellipsoid_axes)
+    implicit = np.minimum(np.abs(np.linalg.norm((pts - c) / ax, axis=1) - 1.0), np.abs(pts[:, 1]) / float(np.mean(ax)))
+    return {
+        "gauge_scale": tf.scale,
+        "aligned_pose_rmse": pose_rmse,
+        "aligned_pose_rmse_vs_ring": pose_rmse / scene.ring_radius,
+        "point_surface_residual_median": float(np.median(implicit)),
+        "point_surface_residual_p90": float(np.percentile(implicit, 90)),
+    }
+
+
+def count_host_syncs(run):
+    """Run ``run()`` and count its host syncs: LM iterations (each reads one
+    flag back: calls of ``bundle_adjust._lm_decision``) and every
+    synchronizing CUDA operation (``torch.cuda.set_sync_debug_mode``), in
+    all and inside the marker-free pose chain. Returns (run's result,
+    counts)."""
+    counts = {"lm_iterations": 0, "cuda_syncs": 0, "chain_lm_iterations": 0, "chain_cuda_syncs": 0}
+    in_chain = [False]
+    real_decision, real_chain = bundle_adjust._lm_decision, pipeline._chain_keyframe_poses
+
+    def decision(*args):
+        counts["lm_iterations"] += 1
+        counts["chain_lm_iterations"] += in_chain[0]
+        return real_decision(*args)
+
+    def chain(*args, **kwargs):
+        in_chain[0] = True
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                return real_chain(*args, **kwargs)
+            finally:
+                in_chain[0] = False
+                counts["chain_cuda_syncs"] += sum("synchronizing" in str(w.message) for w in caught)
+
+    bundle_adjust._lm_decision, pipeline._chain_keyframe_poses = decision, chain
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = run()
+        counts["cuda_syncs"] = sum("synchronizing" in str(w.message) for w in caught) + counts["chain_cuda_syncs"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        bundle_adjust._lm_decision, pipeline._chain_keyframe_poses = real_decision, real_chain
+    return out, counts
 
 
 def detector_config(config):
@@ -127,9 +242,13 @@ def _device_busy(trace_path: Path):
     return busy / 1e3, kernels
 
 
-def profile_path(label, scene, frames, corners, config, warm_runs, report):
-    """The four runs of one path; fills ``report[label]``."""
+def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_poses=None):
+    """The four runs of one path; fills ``report[label]``. With ``gt_poses``
+    (the marker-free path) the warm entry carries ``markerless_accuracy``
+    in place of the volume error (the volume is in the gauge's units), and
+    one more run counts the host syncs."""
     rep = report[label] = {}
+    n_frames = len(frames)
     wall, res = _timed_process(frames, corners, config)
     rep["cold"] = {"wall_s": wall, "stages": res.metrics["timings"]}
     print(f"[{label}] cold: wall {wall} s stages {json.dumps(res.metrics['timings'])}")
@@ -141,14 +260,17 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report):
     q = statistics.quantiles(walls, n=4) if len(walls) > 1 else [walls[0]] * 3
     rep["warm"] = {
         "wall_s": walls, "median_s": q[1], "q1_s": q[0], "q3_s": q[2],
-        "fps_at_median": HEADLINE_FRAMES / q[1],
+        "fps_at_median": n_frames / q[1],
         "keyframes": res.metrics["counters"]["keyframes"], "points": len(res.points),
-        "rmse_px": res.reprojection_rmse,
-        "volume_err": (res.volume - scene.volume) / scene.volume,
+        "rmse_px": res.reprojection_rmse, "stages": res.metrics["timings"],
     }
-    print(f"[{label}] warm x{len(walls)}: median {q[1]} s (q1 {q[0]}, q3 {q[2]}), {HEADLINE_FRAMES / q[1]} fps; "
+    if gt_poses is None:
+        rep["warm"]["volume_err"] = (res.volume - scene.volume) / scene.volume
+    else:
+        rep["warm"]["accuracy"] = markerless_accuracy(res, gt_poses, scene)
+    print(f"[{label}] warm x{len(walls)}: median {q[1]} s (q1 {q[0]}, q3 {q[2]}), {n_frames / q[1]} fps; "
           f"keyframes {rep['warm']['keyframes']} points {rep['warm']['points']} "
-          f"rmse {res.reprojection_rmse} volume err {rep['warm']['volume_err']}")
+          f"rmse {res.reprojection_rmse} {json.dumps({k: v for k, v in rep['warm'].items() if k in ('volume_err', 'accuracy')})}")
 
     torch.cuda.reset_peak_memory_stats()
     os.environ["MEATMODELER_SYNC_STAGES"] = "1"
@@ -178,12 +300,19 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report):
     print(f"[{label}] profiled: wall {wall} s device busy {busy_ms} ms share {busy_ms / 1e3 / wall} "
           f"kernel launches {kernels}")
 
+    if gt_poses is not None:
+        (wall, _), syncs = count_host_syncs(lambda: _timed_process(frames, corners, config))
+        rep["host_syncs"] = dict(syncs, wall_s=wall)
+        print(f"[{label}] host syncs (sync debug mode on, wall {wall} s): {json.dumps(syncs)}")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--warm-runs", type=int, default=10)
     ap.add_argument("--out", default=str(REPO / "build" / "profile_headline.json"))
+    ap.add_argument("--paths", default="known,detector,markerless", help="comma-separated subset to run")
     args = ap.parse_args(argv)
+    paths = args.paths.split(",")
     if not torch.cuda.is_available():
         print("profile_headline: CUDA is not available", file=sys.stderr)
         return 2
@@ -191,14 +320,21 @@ def main(argv=None) -> int:
     report = {"device": torch.cuda.get_device_name(0), "frames": HEADLINE_FRAMES}
     report["library_prebuilt"] = clahe_cuda.LIBRARY.exists()
 
-    t0 = time.perf_counter()
-    scene, frames, corners = headline_clip("cuda")
-    torch.cuda.synchronize()
-    report["render_s"] = time.perf_counter() - t0
-    print(f"rendered {tuple(frames.shape)} in {report['render_s']} s (library prebuilt: {report['library_prebuilt']})")
-
-    profile_path("known", scene, frames, corners, config, args.warm_runs, report)
-    profile_path("detector", scene, frames, None, detector_config(config), args.warm_runs, report)
+    if "known" in paths or "detector" in paths:
+        t0 = time.perf_counter()
+        scene, frames, corners = headline_clip("cuda")
+        torch.cuda.synchronize()
+        report["render_s"] = time.perf_counter() - t0
+        print(f"rendered {tuple(frames.shape)} in {report['render_s']} s (library prebuilt: {report['library_prebuilt']})")
+        if "known" in paths:
+            profile_path("known", scene, frames, corners, config, args.warm_runs, report)
+        if "detector" in paths:
+            profile_path("detector", scene, frames, None, detector_config(config), args.warm_runs, report)
+        del frames
+    if "markerless" in paths:
+        scene, frames, poses = markerless_clip("cuda")
+        report["markerless_frames"] = len(frames)
+        profile_path("markerless", scene, frames, None, markerless_config(), args.warm_runs, report, gt_poses=poses)
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -15,15 +15,15 @@ __all__ = ["NumericsError", "checks_enabled", "check_finite", "nanmedian"]
 
 
 def nanmedian(x: torch.Tensor) -> torch.Tensor:
-    """Median of the non-NaN entries of a 1-D tensor, averaging the two
+    """Median of the non-NaN entries along the last dim, averaging the two
     middle values for an even count — ``jnp.nanmedian``'s rule
-    (``torch.nanmedian`` returns the lower middle value instead). NaN when
+    (``torch.nanmedian`` returns the lower middle value instead). NaN where
     every entry is NaN."""
-    vals = torch.sort(torch.where(torch.isnan(x), torch.inf, x)).values
-    n = (~torch.isnan(x)).sum()
-    lo = vals[torch.clamp((n - 1) // 2, min=0)]
-    hi = vals[torch.clamp(n // 2, min=0)]
-    return torch.where(n > 0, 0.5 * (lo + hi), torch.nan)
+    vals = torch.sort(torch.where(torch.isnan(x), torch.inf, x), dim=-1).values
+    n = (~torch.isnan(x)).sum(-1, keepdim=True)
+    lo = torch.gather(vals, -1, torch.clamp((n - 1) // 2, min=0))[..., 0]
+    hi = torch.gather(vals, -1, torch.clamp(n // 2, min=0))[..., 0]
+    return torch.where(n[..., 0] > 0, 0.5 * (lo + hi), torch.nan)
 
 
 class NumericsError(RuntimeError):

@@ -155,3 +155,87 @@ def test_detector_path_ops_on_cuda_match_cpu(cuda):
     diff = (flow_g.points.cpu()[flow_c.status] - flow_c.points[flow_c.status]).abs()
     assert float(diff.max()) <= 0.01
     assert float(diff.median()) <= 1e-4
+
+
+def _two_view_scene(n=300, seed=0):
+    """Spread points seen by two cameras (the port's projection), 0.5 px noise."""
+    from meatmodeler_tpu_torch.geometry import projection
+
+    rng = np.random.default_rng(seed)
+    k = torch.tensor([[700.0, 0, 320], [0, 700.0, 240], [0, 0, 1]])
+    pts = torch.from_numpy((rng.normal(size=(n, 3)) * 2 + [0, 0, 8]).astype(np.float32))
+    cam1 = torch.tensor([0.02, 0.25, -0.03, -1.5, 0.1, 0.3])
+    p1 = projection.project_points(pts, torch.zeros(6), k)
+    p2 = projection.project_points(pts, cam1, k)
+    noise = torch.from_numpy(rng.normal(scale=0.5, size=(2, n, 2)).astype(np.float32))
+    return k, p1 + noise[0], p2 + noise[1]
+
+
+@pytest.fixture
+def cpu_draws(monkeypatch):
+    """The same hypotheses on both devices: draws made on the CPU (a
+    generator per call, seed 0), moved to the mask's device."""
+    from meatmodeler_tpu_torch.geometry import ransac
+
+    real = ransac.sample_subsets
+
+    def draws(mask, num_hypotheses, size, generator):
+        idx = real(mask.cpu(), num_hypotheses, size, torch.Generator().manual_seed(size))
+        return idx.to(mask.device)
+
+    monkeypatch.setattr(ransac, "sample_subsets", draws)
+
+
+@pytest.mark.gpu
+def test_estimate_relative_pose_on_cuda_matches_cpu(cuda, cpu_draws):
+    """The LO-RANSAC bootstrap on the card against the port on the CPU, the
+    same hypotheses on both: cuSOLVER's eigen/SVD signs and order may differ
+    from LAPACK's, so rvec and unit tvec are held to 1e-3 and the inlier
+    masks to 1% of the points."""
+    from meatmodeler_tpu_torch.geometry import ransac
+
+    k, p1, p2 = _two_view_scene()
+    mask = torch.ones(p1.shape[0], dtype=torch.bool)
+    mask[-10:] = False
+    rv_c, tv_c, res_c = ransac.estimate_relative_pose(p1, p2, mask, k)
+    rv_g, tv_g, res_g = ransac.estimate_relative_pose(p1.to(cuda), p2.to(cuda), mask.to(cuda), k.to(cuda))
+    torch.testing.assert_close(rv_g.cpu(), rv_c, atol=1e-3, rtol=0)
+    torch.testing.assert_close(tv_g.cpu(), tv_c, atol=1e-3, rtol=0)
+    assert int((res_g.inliers.cpu() != res_c.inliers).sum()) <= 3
+    assert int(res_c.num_inliers) > 250
+
+
+@pytest.mark.gpu
+def test_chain_step_on_cuda_matches_cpu(cuda):
+    """One step of the marker-free chain (re-triangulation, 2-start PnP,
+    trimmed re-solve, in-chain BA) on the card against the CPU, from the
+    same poses of keyframes 0 and 1: the same visible and PnP-inlier counts,
+    the poses within 1e-3."""
+    from meatmodeler_tpu_torch import pipeline
+    from meatmodeler_tpu_torch.config import SolverConfig
+    from meatmodeler_tpu_torch.geometry import projection
+
+    rng = np.random.default_rng(1)
+    n, f = 400, 4
+    k = torch.tensor([[480.0, 0, 200], [0, 480.0, 150], [0, 0, 1]])
+    pts = torch.from_numpy((rng.normal(size=(n, 3)) * [1.0, 1.0, 0.5] + [0, 0, 6]).astype(np.float32))
+    cams = torch.tensor([[0.0, 0.05 * i, 0.0, -0.4 * i, 0.0, 0.03 * i] for i in range(f)])
+    coords = projection.project_points(pts[:, None, :], cams[None], k)
+    coords = coords + torch.from_numpy(rng.normal(scale=0.3, size=coords.shape).astype(np.float32))
+    coords[:20, 2] += 15.0  # outliers in keyframe 2: the trimmed re-solve runs
+    obs_mask = torch.from_numpy(rng.random((n, f)) < 0.9)
+    obs_mask[:, :2] = True
+    pidx, fidx = torch.nonzero(obs_mask, as_tuple=True)
+    params = cams.clone()
+    params[1, 3:] = cams[1, 3:] / torch.linalg.norm(cams[1, 3:])  # a unit baseline, as the bootstrap sets it
+    params[2:] = params[1]
+    known = torch.tensor([True, True, False, False])
+    pose_cfg = SolverConfig(ftol=1e-8, max_iters=100)
+    chain_cfg = SolverConfig(ftol=1e-6, max_iters=12)
+    step = pipeline._make_chain_step(4.0, pose_cfg, chain_cfg)
+    args = (params, known, torch.tensor(chain_cfg.init_lambda), 2, coords, obs_mask, coords[pidx, fidx], fidx, pidx, k)
+    out_c = step(*args)
+    out_g = step(*(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args))
+    assert int(out_g[3]) == int(out_c[3]) and int(out_g[4]) == int(out_c[4])
+    assert bool(out_g[1].cpu()[2]) and not bool(out_g[1].cpu()[3])
+    torch.testing.assert_close(out_g[0].cpu()[:3], out_c[0][:3], atol=1e-3, rtol=0)

@@ -101,17 +101,34 @@ def test_resume_from_checkpoint(runs, clip):
 
 @pytest.mark.parametrize(
     "change",
-    [dict(incremental_ba=True), dict(assume_markerless=True), dict(pass1_backend="host")],
+    [dict(incremental_ba=True, pass1_backend="device"), dict(assume_markerless=True), dict(pass1_backend="host")],
 )
 def test_unported_options_raise(clip, change):
-    """Without known corners, on the device detector: incremental BA, the
-    marker-free path and the host pass 1's cv2 board hunt are not ported."""
-    frames, _ = clip
+    """Without known corners, on the device detector, the first 16 frames:
+    incremental BA (on the device pass 1) and the marker-free path (on the
+    host pass 1) run (the latter up to scale,
+    flagged ``markerless``); the host pass 1's board hunt needs cv2, which
+    the port does not use, and still raises."""
+    frames, corners = clip
     config = dataclasses.replace(
         CONFIG, chessboard=dataclasses.replace(CONFIG.chessboard, detector="device"), **change
     )
-    with pytest.raises(NotImplementedError):
-        torch_process(frames[:4], config=config, device="cpu")
+    if change == dict(pass1_backend="host"):
+        with pytest.raises(NotImplementedError, match="cv2"):
+            torch_process(frames[:16], config=config, device="cpu")
+        return
+    res = torch_process(frames[:16], config=config, device="cpu")
+    counters = res.metrics["counters"]
+    assert counters["keyframes"] >= 3 and np.isfinite(res.points).all() and len(res.points) > 0
+    assert np.isfinite(res.reprojection_rmse) and res.reprojection_rmse < 2.0
+    if change.get("incremental_ba"):
+        steps = counters["ba_rmse_px_steps"]
+        assert len(steps) == counters["keyframes"] - 2 and np.isfinite(steps).all()
+        assert counters["ba_iterations_total"] >= counters["ba_iterations"]
+        assert "markerless" not in counters
+    else:
+        assert counters["markerless"] is True
+        assert "board_probe_exhausted" not in counters
 
 
 def test_tf32_settings_restored(clip):

@@ -105,11 +105,12 @@ def test_known_corners_on_the_device_pass1(runs, clip):
 
 
 def test_boardless_clip_raises():
-    """No board anywhere: the reference would fall back to its marker-free
-    path; the port says that path is not ported instead of running it, and
-    with the fallback off it is the reference's ValueError."""
+    """No board anywhere: as in the reference, the marker-free fallback
+    engages (a second, board-free pass 1) and fails on pure noise with the
+    reference's ValueError; with the fallback off it is the reference's
+    ValueError about the chessboard."""
     frames = np.random.default_rng(0).integers(0, 256, size=(6, 120, 160, 3)).astype(np.uint8)
-    with pytest.raises(NotImplementedError, match="marker-free"):
+    with pytest.raises(ValueError, match="marker-free pose bootstrap failed"):
         torch_process(frames, config=CONFIG, device="cpu")
     with pytest.raises(ValueError, match="visible chessboard"):
         torch_process(frames, config=dataclasses.replace(CONFIG, markerless_fallback=False), device="cpu")

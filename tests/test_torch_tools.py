@@ -56,3 +56,57 @@ def test_detector_config_is_the_default_path():
     assert (DEFAULT_CONFIG.pass1_backend, DEFAULT_CONFIG.pass2_enhance) == (cfg.pass1_backend, cfg.pass2_enhance)
     assert cfg.keyframe == base.keyframe and cfg.chessboard.pattern == base.chessboard.pattern
 
+
+
+def test_markerless_clip_and_config_are_the_jax_bench_variant():
+    """``markerless_clip`` renders ``bench.markerless_scene()``; the config
+    is ``headline_config()`` with the four changes of ``bench.run_markerless``."""
+    import bench
+
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene
+    from meatmodeler_tpu_torch.testing import from_fields
+
+    scene = from_fields(bench.markerless_scene(), TurntableScene)
+    assert scene == TurntableScene(
+        image_size=(1280, 720), focal=1000.0, noise_sigma=1.0, show_board=False, ground_texture=12.0
+    )
+    assert profile_headline.MARKERLESS_FRAMES == bench.MF_FRAMES
+    head, cfg = profile_headline.headline_config(), profile_headline.markerless_config()
+    assert (cfg.pass1_downscale, cfg.keyframe.flow_threshold, cfg.assume_markerless, cfg.markerless_focal) == (4, 0.0, True, 0.0)
+    assert dataclasses.replace(
+        cfg, pass1_downscale=head.pass1_downscale, keyframe=head.keyframe, assume_markerless=False
+    ) == head
+    assert (cfg.orb.num_features, cfg.orb.num_levels, cfg.tracks.max_tracks, cfg.volume.voxel_resolution) == (4096, 4, 8192, 64)
+
+
+def test_markerless_accuracy_of_an_exact_reconstruction():
+    """Keyframe poses that are the truth moved rigidly (a rotation, a shift)
+    and points on the true surfaces score zero pose RMSE and zero surface
+    residual at scale 1. (The anchors sit a fixed distance from each
+    camera, as in the JAX package's bench, so only a rigid move is exact.)"""
+    import types
+
+    import numpy as np
+
+    from meatmodeler_tpu_torch.geometry import projection
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+
+    scene = TurntableScene(image_size=(160, 120), show_board=False)
+    _, poses, _ = render_sequence(scene, 9, seed=1)
+    kf = [0, 4, 8]
+    ext = projection.extrinsics_from_params(torch.from_numpy(poses[kf]).double(), homogeneous=True).numpy()
+    # World' = s R0 World + t0 changes each camera to [R R0^T | s t - R R0^T t0].
+    s, r0 = 1.0, projection.extrinsics_from_params(torch.tensor([[0.1, -0.2, 0.3, 0, 0, 0]]).double())[0, :, :3].numpy()
+    t0 = np.array([1.0, 2.0, -0.5])
+    ext2 = ext.copy()
+    ext2[:, :3, :3] = ext[:, :3, :3] @ r0.T
+    ext2[:, :3, 3] = s * ext[:, :3, 3] - np.einsum("fij,j->fi", ext2[:, :3, :3], t0)
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(50, 3))
+    pts = np.array(scene.ellipsoid_center) + np.array(scene.ellipsoid_axes) * d / np.linalg.norm(d, axis=1, keepdims=True)
+    res = types.SimpleNamespace(
+        extrinsics=ext2, points=s * pts @ r0.T + t0, metrics={"counters": {"keyframe_indices": kf}}
+    )
+    acc = profile_headline.markerless_accuracy(res, poses, scene)
+    assert acc["aligned_pose_rmse"] < 1e-6 and acc["point_surface_residual_median"] < 1e-6
+    assert abs(acc["gauge_scale"] - 1.0) < 1e-6
