@@ -35,7 +35,28 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      corners: the device hunt must give up (``board_probe_exhausted`` >=
      ``board_probe_frames``) and the run come out marker-free; last, the
      kernels at this path's keyframe input (n_kf, 360, 640), compared and
-     timed.
+     timed;
+  7. the multi-video batch, the JAX package's batch row: 8 clips of 60
+     frames, 1080p, seeds 100-107, rendered on the card, through
+     ``process_batch`` with ``batch_config()`` and no corners, twice (launch
+     counts reset just before); every clip must take the batch prepass and
+     meet the rmse and volume bounds, and each kernel must launch once per
+     clip; per-clip rmse and volume error are printed beside the JAX
+     package's record;
+  8. the pipelined schedule: the headline clip and a seed-7 render (300
+     frames each, with their corners) through ``process_batch_pipelined``
+     with ``headline_config()`` (launch counts reset just before), the same
+     checks per clip, then the same two through ``process`` one after the
+     other; seconds and rmse of both are printed;
+  9. odometry: ``chain_poses`` over the board-free clip of phase 6 with the
+     scene's K (launch counts reset just before): more than 50 points
+     tracked in every step and a chained-rotation error under 6 degrees
+     over the first 10 steps (the JAX package's test bound); the drift over
+     the clip is printed; then the kernels compared and timed at its input
+     (one 720x1280 frame) and at a batch clip's keyframes; last, the
+     command line as a subprocess, ``python3 -m meatmodeler_tpu_torch.cli``
+     on one batch clip saved as ``.npy`` with ``--detector device --json``,
+     then on two with ``--schedule mesh``: exit 0 and the JSON payload's keys.
 Kernel times are device medians with a cold L2 and the host's launch time
 hidden (``tools/clahe_bench.time_ms``), each printed beside the bytes the
 kernel must move, its bound at the card's memory rate and the share of it
@@ -58,18 +79,25 @@ import numpy as np
 import torch
 
 from meatmodeler_tpu_torch.io import native_ops
+from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
 from meatmodeler_tpu_torch.ops import clahe_cuda, color
+from meatmodeler_tpu_torch.parallel.batch import process_batch
+from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
 from meatmodeler_tpu_torch.pipeline import process
 from meatmodeler_tpu_torch.tools.clahe_bench import time_kernels
 from meatmodeler_tpu_torch.tools.profile_headline import (
     HEADLINE_FRAMES,
+    PP_SEED,
+    batch_clips,
+    batch_config,
     detector_config,
     headline_clip,
     headline_config,
     markerless_accuracy,
     markerless_clip,
     markerless_config,
+    odometry_accuracy,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -83,6 +111,12 @@ VOLUME_ERR_MAX = 0.35
 # (BENCH_LAST_GOOD.json, "markerless"): accuracy, no times.
 JAX_MARKERLESS = {"keyframes": 6, "points": 565, "rmse_px": 0.6232, "aligned_pose_rmse_vs_ring": 0.2466,
                   "point_surface_residual_median": 3.8924, "board_probe_exhausted": 64}
+# The JAX package's record of its batch row (BENCH_r05.json, quoted in
+# VERDICT.md): |volume error| per clip, accuracy only.
+JAX_BATCH_VOLUME_ERR = [0.023, 0.239, 0.237, 0.262, 0.178, 0.238, 0.215, 0.304]
+ODOMETRY_ROT_ERR_MAX_DEG = 6.0  # over the first 10 steps (tests/test_odometry.py)
+CLI_PAYLOAD_KEYS = {"video", "points", "keyframes", "volume", "volume_carved", "reprojection_rmse", "ply", "timings",
+                    "counters"}
 KERNELS = {
     "clahe_lut": ("meatmodeler_tpu/ops/clahe_pallas.py:192", "_lut_kernel"),
     "clahe_apply": ("meatmodeler_tpu/ops/clahe_pallas.py:208", "_apply_kernel"),
@@ -242,6 +276,126 @@ def run_fallback(frames):
         raise AssertionError("fallback rmse is not finite")
 
 
+def check_clip(res, scene):
+    """The repo's bounds on one board clip; returns its volume error."""
+    vol_err = (res.volume - scene.volume) / scene.volume
+    if not np.isfinite(res.points).all() or res.points.shape[1] != 3 or len(res.points) < 100:
+        raise AssertionError("non-finite, misshapen or too small cloud")
+    if not (np.isfinite(res.reprojection_rmse) and res.reprojection_rmse <= RMSE_MAX_PX):
+        raise AssertionError(f"rmse {res.reprojection_rmse} outside {RMSE_MAX_PX}")
+    if not res.volume_confidence["low_confidence"] and not abs(vol_err) <= VOLUME_ERR_MAX:
+        raise AssertionError(f"hull volume error {vol_err} outside {VOLUME_ERR_MAX}")
+    return vol_err
+
+
+def run_batch(scene, clips):
+    """Phase 7: ``process_batch`` twice, each clip held to the bounds and to
+    the batch prepass, each kernel launched once per clip. Returns
+    (launches, the first clip's counters)."""
+    config = batch_config()
+    n_frames = sum(len(c) for c in clips)
+    clahe_cuda.reset_launches()
+    for run in range(2):
+        before = dict(clahe_cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        results = process_batch(clips, config=config, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: clahe_cuda.LAUNCHES[k] - before[k] for k in KERNELS}
+        print(f"[batch] run {run}: wall {wall:.3f} s for {len(clips)} clips ({n_frames / wall:.2f} fps aggregate), "
+              f"batch solve {results[0].metrics['counters']['batch_solve_s']:.4f} s, launches {launched}")
+        for i, res in enumerate(results):
+            c = res.metrics["counters"]
+            vol_err = check_clip(res, scene)
+            print(f"  clip {i}: keyframes {c['keyframes']} points {len(res.points)} rmse {res.reprojection_rmse:.4f} "
+                  f"BA iterations {c['ba_iterations']} volume err {vol_err:+.4f} low_confidence "
+                  f"{res.volume_confidence['low_confidence']} (JAX package's record |err| {JAX_BATCH_VOLUME_ERR[i]}, "
+                  f"accuracy only)")
+            if c.get("batch_fast_prepass") is not True:
+                raise AssertionError(f"clip {i} did not take the batch prepass")
+        if min(launched.values()) < len(clips):
+            raise AssertionError(f"a kernel did not launch for every clip of the batch: {launched}")
+    return dict(clahe_cuda.LAUNCHES), results[0].metrics["counters"]
+
+
+def run_pipelined(scene, clips, corners):
+    """Phase 8: ``process_batch_pipelined`` on two 300-frame clips, then the
+    same two through ``process``. Returns the pipelined run's launches."""
+    config = headline_config()
+    clahe_cuda.reset_launches()
+    t0 = time.perf_counter()
+    piped = process_batch_pipelined(clips, config=config, known_corners=corners)
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    launches = dict(clahe_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    seq = [process(v, config=config, known_corners=c, device="cuda") for v, c in zip(clips, corners)]
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    n_frames = sum(len(c) for c in clips)
+    print(f"[pipelined] pipelined {t_pipe:.3f} s ({n_frames / t_pipe:.2f} fps), one after the other {t_seq:.3f} s "
+          f"({n_frames / t_seq:.2f} fps), launches {launches}")
+    for i, (p, q) in enumerate(zip(piped, seq)):
+        vol_err = check_clip(p, scene)
+        print(f"  clip {i}: keyframes {p.metrics['counters']['keyframes']} points {len(p.points)} rmse "
+              f"{p.reprojection_rmse:.4f} (one after the other {q.reprojection_rmse:.4f}) volume err {vol_err:+.4f}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the pipelined path never launched: {launches}")
+    return launches
+
+
+def run_odometry(scene, frames, poses):
+    """Phase 9a: ``chain_poses`` over the board-free clip. Returns its
+    launches."""
+    clahe_cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = chain_poses(frames, scene.intrinsics, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(clahe_cuda.LAUNCHES)
+    acc = odometry_accuracy(res, poses)
+    print(f"[odometry] wall {wall:.3f} s ({wall / len(frames):.4f} s per frame), launches {launches}")
+    print(f"  tracked per step min {acc['min_tracked']}, inliers per step min {int(res.num_inliers[1:].min())}; "
+          f"rotation error over the first 10 steps max {acc['rot_err_first_deg']:.4f} deg (bound "
+          f"{ODOMETRY_ROT_ERR_MAX_DEG}); over the clip max {acc['rot_err_max_deg']:.4f} deg, drift at the last "
+          f"frame {acc['drift_deg']:.4f} deg of a {acc['orbit_deg']:.2f}-deg orbit")
+    if acc["min_tracked"] <= 50:
+        raise AssertionError(f"odometry tracked too few points: {res.num_tracked}")
+    if not acc["rot_err_first_deg"] < ODOMETRY_ROT_ERR_MAX_DEG:
+        raise AssertionError(f"odometry rotation error {acc['rot_err_first_deg']} deg over the first 10 steps")
+    if min(launches.values()) < len(frames):
+        raise AssertionError(f"a kernel did not launch for every frame of the odometry: {launches}")
+    return launches
+
+
+def run_cli(clips):
+    """Phase 9b: the command line as a subprocess, on one batch clip saved
+    as ``.npy`` and then on two with ``--schedule mesh``."""
+    paths = []
+    for i, clip in enumerate(clips[:2]):
+        paths.append(str(OUT / f"cli_clip{i}.npy"))
+        np.save(paths[-1], clip)
+    # 0.05 of the width is the headline config's keyframe budget (threshold_abs 96 at 1920 px).
+    flags = ["-o", str(OUT / "cli"), "--detector", "device", "--keyframe-threshold", "0.05", "--json"]
+    for label, args, n in (("one clip", paths[:1], 1), ("two clips, --schedule mesh", [*paths, "--schedule", "mesh"], 2)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "meatmodeler_tpu_torch.cli", *args, *flags],
+            capture_output=True, text=True, cwd=REPO, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"the command line exited {proc.returncode} on {label}:\n{proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        payloads = out if isinstance(out, list) else [out]
+        print(f"[cli] {label}: exit 0 in {time.perf_counter() - t0:.2f} s; "
+              + "; ".join(f"keyframes {p['keyframes']} points {p['points']} rmse {p['reprojection_rmse']:.4f}"
+                          for p in payloads))
+        if len(payloads) != n or any(set(p) != CLI_PAYLOAD_KEYS for p in payloads):
+            raise AssertionError(f"unexpected command-line payload on {label}: {[sorted(p) for p in payloads]}")
+    for p in paths:
+        Path(p).unlink()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -288,7 +442,7 @@ def main() -> int:
     compare_kernels(dev, [("pass-1 chunk", chunk, (8, 8)), ("pass-2 LAB L", lab_l, (8, 8))], err)
     time_at("pass-1 chunk", chunk, timings)
     time_at("pass-2 LAB L", lab_l, timings)
-    del frames, chunk, lab_l, keyframes, grey
+    del chunk, lab_l, keyframes, grey
 
     # Phase 6: the marker-free path, and the automatic fallback.
     t0 = time.perf_counter()
@@ -309,6 +463,34 @@ def main() -> int:
         raise AssertionError(f"a kernel of the fallback path never launched: {clahe_cuda.LAUNCHES}")
     for k in launches:
         launches[k] += clahe_cuda.LAUNCHES[k]
+
+    # Phase 7: the multi-video batch.
+    t0 = time.perf_counter()
+    bscene, bclips = batch_clips(dev)
+    print(f"rendered {len(bclips)} x {bclips[0].shape} in {time.perf_counter() - t0:.2f} s")
+    launches_b, c = run_batch(bscene, bclips)
+    for k in launches:
+        launches[k] += launches_b[k]
+    batch_kf = torch.from_numpy(
+        native_ops.bgr_to_grey_down(np.ascontiguousarray(bclips[0][c["keyframe_indices"]]), c["kf_scale"])
+    ).to(dev).float()
+
+    # Phase 8: the pipelined schedule on the headline clip and a seed-7 render.
+    _, frames7, corners7 = headline_clip(dev, seed=PP_SEED)
+    launches_p = run_pipelined(scene, [frames, frames7], [corners, corners7])
+    for k in launches:
+        launches[k] += launches_p[k]
+    del frames, frames7
+
+    # Phase 9: odometry over the board-free clip, its kernels, the CLI.
+    launches_o = run_odometry(mscene, mframes, mposes)
+    for k in launches:
+        launches[k] += launches_o[k]
+    frame = torch.from_numpy(np.ascontiguousarray(mframes[:1])).to(dev).float()
+    compare_kernels(dev, [("odometry frame", frame, (8, 8)), ("batch-clip keyframes", batch_kf, (8, 8))], err)
+    time_at("odometry frame", frame, timings)
+    time_at("batch-clip keyframes", batch_kf, timings)
+    run_cli(bclips)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "meatmodeler_tpu", "bench"))
     if loaded:
         raise AssertionError(f"the port loaded the JAX package or its bench: {loaded}")

@@ -16,7 +16,7 @@ from torch.func import jacfwd
 from meatmodeler_tpu_torch.geometry import distortion as distortion_mod
 from meatmodeler_tpu_torch.geometry import pnp, projection, so3
 from meatmodeler_tpu_torch.geometry.homography import find_homography
-from meatmodeler_tpu_torch.utils.numerics import nanmedian
+from meatmodeler_tpu_torch.utils.numerics import nanmedian, one_thread_at_a_time
 
 __all__ = ["chessboard_object_points", "calibrate", "CalibrationResult"]
 
@@ -193,7 +193,7 @@ def calibrate(
     def cost_of(theta):
         return 0.5 * torch.sum(residual(theta) ** 2)
 
-    jac_fn = jacfwd(residual)
+    jac_fn = one_thread_at_a_time(jacfwd(residual))
 
     def run_lm(t0):
         theta, lam, cost = t0, torch.tensor(1e-3, dtype=dtype, device=device), cost_of(t0)

@@ -10,6 +10,7 @@ from torch.func import jacfwd, vmap
 
 from meatmodeler_tpu_torch.geometry import projection, so3
 from meatmodeler_tpu_torch.geometry.homography import find_homography
+from meatmodeler_tpu_torch.utils.numerics import one_thread_at_a_time
 
 __all__ = ["solve_pnp_planar", "refine_pose", "solve_pnp_batch"]
 
@@ -63,7 +64,7 @@ def refine_pose(pose, obj_pts, img_pts, intrinsics, iters: int = 10, damping: fl
     def residual(p, img):
         return (projection.project_points(obj_pts, p[None, :], intrinsics) - img).reshape(-1)
 
-    jac_fn = vmap(jacfwd(residual, argnums=0))
+    jac_fn = one_thread_at_a_time(vmap(jacfwd(residual, argnums=0)))
     eye = torch.eye(6, dtype=pose.dtype, device=pose.device)
     for _ in range(iters):
         r = vmap(residual)(pose, img_pts)  # (F, 2N)

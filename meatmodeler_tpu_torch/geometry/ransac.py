@@ -29,7 +29,7 @@ from torch.func import jacfwd, vmap
 
 from meatmodeler_tpu_torch.geometry import so3
 from meatmodeler_tpu_torch.geometry.homography import find_homography
-from meatmodeler_tpu_torch.utils.numerics import nanmedian
+from meatmodeler_tpu_torch.utils.numerics import nanmedian, one_thread_at_a_time
 
 __all__ = [
     "RansacResult",
@@ -357,7 +357,7 @@ def refine_relative_pose(
         return focal * num / den
 
     residual = vmap(raw_residual)
-    jacobian = vmap(jacfwd(raw_residual))
+    jacobian = one_thread_at_a_time(vmap(jacfwd(raw_residual)))
     batch = rvec.shape[:-1]
     params = torch.cat([rvec, _unit(tvec)], dim=-1).reshape(-1, 6).to(n1.dtype)
     lam = torch.full(params.shape[:1], 1e-4, dtype=n1.dtype, device=n1.device)

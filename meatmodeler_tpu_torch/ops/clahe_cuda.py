@@ -38,11 +38,19 @@ LAUNCHES = {"clahe_lut": 0, "clahe_apply": 0}
 
 _lib = None
 _lock = threading.Lock()
+# Guards LAUNCHES: the batch entry points launch from two host threads.
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -112,7 +120,7 @@ def clahe_lut(img: torch.Tensor, clip_limit: float, tiles: Tuple[int, int]) -> t
     stream = torch.cuda.current_stream(img.device).cuda_stream
     code = lib.clahe_lut(img.data_ptr(), lut.data_ptr(), b, h, w, ty, tx, th, tw, clip, stream)
     _raise_on(code, "clahe_lut_kernel")
-    LAUNCHES["clahe_lut"] += 1
+    _count("clahe_lut")
     return lut
 
 
@@ -133,7 +141,7 @@ def clahe_apply(img: torch.Tensor, lut: torch.Tensor, tiles: Tuple[int, int]) ->
         img.data_ptr(), lut.data_ptr(), out.data_ptr(), b, h, w, ty, tx, th, tw, stream
     )
     _raise_on(code, "clahe_apply_kernel")
-    LAUNCHES["clahe_apply"] += 1
+    _count("clahe_apply")
     return out
 
 

@@ -206,7 +206,35 @@ def _level_budgets(max_features: int, num_levels: int, scale_factor: float):
     return budgets
 
 
-def _detect_chunk(img, max_features, num_levels, scale_factor, fast_threshold):
+def _top_k(x: torch.Tensor, k: int):
+    """Exact top-k along the last dim; a stable sort breaks ties toward the
+    lower index, as ``lax.top_k`` does."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _grid_top_k(resp: torch.Tensor, k: int, g: int):
+    """The reference's bucketed selection on (B, H, W) responses: pad to a
+    multiple of ``g`` with -inf, keep the best ceil(k / g^2) of each of the
+    g x g cells, then rank the survivors globally. Returns (responses,
+    flat pixel indices), at most ``k`` per image; candidates from the
+    padded strip keep -inf and an index clamped into the image."""
+    bsz, h, w = resp.shape
+    ph, pw = -h % g, -w % g
+    padded = F.pad(resp, (0, pw, 0, ph), value=-torch.inf)
+    ch, cw = (h + ph) // g, (w + pw) // g
+    cells = padded.reshape(bsz, g, ch, g, cw).permute(0, 1, 3, 2, 4).reshape(bsz, g * g, ch * cw)
+    c_resp, c_idx = _top_k(cells, min(-(-k // (g * g)), ch * cw))
+    ci = torch.arange(g * g, device=resp.device)[:, None]
+    cy = (ci // g) * ch + c_idx // cw
+    cx = (ci % g) * cw + c_idx % cw
+    cand_idx = (torch.clamp(cy, max=h - 1) * w + torch.clamp(cx, max=w - 1)).reshape(bsz, -1)
+    cand_resp = c_resp.reshape(bsz, -1)
+    top_resp, sel = _top_k(cand_resp, min(k, h * w, cand_resp.shape[1]))
+    return top_resp, torch.gather(cand_idx, 1, sel)
+
+
+def _detect_chunk(img, max_features, num_levels, scale_factor, fast_threshold, grid_cells):
     bsz = img.shape[0]
     level_img = img
     outs = []
@@ -222,12 +250,12 @@ def _detect_chunk(img, max_features, num_levels, scale_factor, fast_threshold):
         xx = torch.arange(w, device=img.device)[None, :]
         margin = _HALF + 1
         ok = (resp >= neigh) & (yy >= margin) & (yy < h - margin) & (xx >= margin) & (xx < w - margin)
-        masked = torch.where(ok, resp, torch.full_like(resp, -torch.inf)).reshape(bsz, -1)
-        # Exact top-k; a stable sort breaks ties toward the lower index, as
-        # lax.top_k does.
-        k_eff = min(k, h * w)
-        top_resp, top_idx = torch.sort(masked, dim=1, descending=True, stable=True)
-        top_resp, top_idx = top_resp[:, :k_eff], top_idx[:, :k_eff]
+        masked = torch.where(ok, resp, torch.full_like(resp, -torch.inf))
+        if grid_cells > 1 and h >= grid_cells and w >= grid_cells:
+            top_resp, top_idx = _grid_top_k(masked, k, grid_cells)
+        else:
+            top_resp, top_idx = _top_k(masked.reshape(bsz, -1), min(k, h * w))
+        k_eff = top_resp.shape[1]
         if k_eff < k:
             top_resp = F.pad(top_resp, (0, k - k_eff), value=-torch.inf)
             top_idx = F.pad(top_idx, (0, k - k_eff))
@@ -265,16 +293,15 @@ def detect_and_compute(
     """Oriented-FAST detection + rBRIEF description over a scale pyramid.
 
     ``img`` is (H, W) or (B, H, W) grey in [0, 255]; outputs carry the same
-    leading dims. The reference's spatially bucketed selection
-    (``grid_cells`` > 0) serves only its marker-free path and is not part of
-    this package yet.
+    leading dims. ``grid_cells`` > 1: each level's corners are ranked
+    within a ``grid_cells`` x ``grid_cells`` grid of cells first, so weak-
+    texture regions keep their best corners (the reference's bucketed
+    selection; levels smaller than the grid rank globally).
     """
-    if grid_cells > 1:
-        raise NotImplementedError("grid_cells bucketed ORB selection is not ported")
     single = img.ndim == 2
     stack = (img[None] if single else img).to(torch.float32)
     parts = [
-        _detect_chunk(stack[i : i + _CHUNK], max_features, num_levels, scale_factor, fast_threshold)
+        _detect_chunk(stack[i : i + _CHUNK], max_features, num_levels, scale_factor, fast_threshold, grid_cells)
         for i in range(0, stack.shape[0], _CHUNK)
     ]
     out = OrbFeatures(*(torch.cat(p, dim=0) for p in zip(*parts)))

@@ -1066,6 +1066,30 @@ def _incremental_ba(pre: PreBA, solver_cfg, metrics):
     return pts_cur, ext4, ba_res
 
 
+def _volume_of(pts, ext4, pre: PreBA, config, metrics):
+    """Hull and carved volume of a solved cloud (NaN with fewer than 8 item
+    points) and the volume-confidence regime check, counted into
+    ``metrics``. Returns (hull, carved, volume_confidence)."""
+    with metrics.stage("volume"):
+        fused = _estimate_volume(
+            pts, pre.intrinsics, ext4, pre.image_size, config,
+            pre.point_sigma, pre.point_parallax, pre.kf_scale, use_plane=not pre.markerless,
+        ).cpu().numpy()
+    n_item = int(fused[2])
+    if n_item >= 8:
+        vol_hull, vol_carve = float(fused[0]), float(fused[1])
+    else:
+        vol_hull = vol_carve = float("nan")
+    metrics.count("item_points", n_item)
+    metrics.count("volume_hull", vol_hull)
+    metrics.count("volume_carved", vol_carve)
+    volume_confidence = _volume_confidence(float(fused[4]), float(fused[5]), n_item, config)
+    metrics.count("volume_low_confidence", volume_confidence["low_confidence"])
+    metrics.count("volume_view_arc_deg", volume_confidence["view_arc_deg"])
+    metrics.count("volume_elongation", volume_confidence["elongation"])
+    return vol_hull, vol_carve, volume_confidence
+
+
 def _solve_and_finish(pre: PreBA, config, metrics, ckpt, path) -> ProcessResult:
     """Global BA (or incremental prefix solves) + volume + PLY from a PreBA."""
     with metrics.stage("bundle_adjustment"):
@@ -1088,30 +1112,12 @@ def _solve_and_finish(pre: PreBA, config, metrics, ckpt, path) -> ProcessResult:
                 rmse=float(ba_res.rmse),
             )
 
-    with metrics.stage("volume"):
-        fused = _estimate_volume(
-            new_pts, pre.intrinsics, new_ext, pre.image_size, config,
-            pre.point_sigma, pre.point_parallax, pre.kf_scale, use_plane=not pre.markerless,
-        ).cpu().numpy()
-
+    vol_hull, vol_carve, volume_confidence = _volume_of(new_pts, new_ext, pre, config, metrics)
     new_pts_np = new_pts.cpu().numpy()
     ply_path = None
     if path is not None:
         with metrics.stage("ply_export"):
             ply_path = ply_mod.write_ply(str(path) + "Cloud.ply", new_pts_np)
-
-    n_item = int(fused[2])
-    if n_item >= 8:
-        vol_hull, vol_carve = float(fused[0]), float(fused[1])
-    else:
-        vol_hull = vol_carve = float("nan")
-    metrics.count("item_points", n_item)
-    metrics.count("volume_hull", vol_hull)
-    metrics.count("volume_carved", vol_carve)
-    volume_confidence = _volume_confidence(float(fused[4]), float(fused[5]), n_item, config)
-    metrics.count("volume_low_confidence", volume_confidence["low_confidence"])
-    metrics.count("volume_view_arc_deg", volume_confidence["view_arc_deg"])
-    metrics.count("volume_elongation", volume_confidence["elongation"])
     return ProcessResult(
         points=new_pts_np,
         extrinsics=new_ext.cpu().numpy(),

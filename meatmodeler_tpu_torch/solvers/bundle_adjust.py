@@ -21,8 +21,9 @@ from torch.func import jacfwd, vmap
 
 from meatmodeler_tpu_torch.config import SolverConfig
 from meatmodeler_tpu_torch.geometry import projection
+from meatmodeler_tpu_torch.utils.numerics import one_thread_at_a_time
 
-__all__ = ["BAProblem", "BAResult", "solve_ba", "adjust_points", "adjust_pose", "pose_only_refine"]
+__all__ = ["BAProblem", "BAResult", "solve_ba", "solve_ba_batch", "adjust_points", "adjust_pose", "pose_only_refine"]
 
 
 class BAProblem(NamedTuple):
@@ -60,7 +61,7 @@ def _obs_jacobians(cam, pts, intrinsics, obs, fidx, pidx, mask, weight=None):
     def res(c, p, ob):
         return projection.project_points(p[None], c[None], intrinsics)[0] - ob
 
-    jc, jp = vmap(jacfwd(res, argnums=(0, 1)))(cam[fidx], pts[pidx], obs)
+    jc, jp = one_thread_at_a_time(vmap(jacfwd(res, argnums=(0, 1))))(cam[fidx], pts[pidx], obs)
     m = mask.to(jc.dtype)[:, None, None]
     if weight is not None:
         m = m * weight[:, None, None]
@@ -214,6 +215,107 @@ def solve_ba(
         problem.point_idx, problem.mask,
     )
     rmse = torch.sqrt(torch.sum(r_px * r_px) / n_valid)
+    return BAResult(cam, pts, cost, rmse, it, lam)
+
+
+def _solve_normal_equations_batch(problem: BAProblem, lam, jc, jp, r):
+    """:func:`_solve_normal_equations` for (V,) independent problems
+    stacked on a leading lane axis, each with its own damping ``lam`` (V,).
+    Frames and points are numbered per lane (lane * F + f) so one segment
+    sum serves every lane; each lane has its own (P, F*6, 3) strip and
+    (6F, 6F) reduced system. Unobserved (padded) cameras and points get
+    identity blocks and solve to 0. The ``_ex`` solves leave a singular
+    lane's step non-finite instead of raising or reading back."""
+    nv, f = problem.cam_params.shape[:2]
+    p = problem.points.shape[1]
+    lane = torch.arange(nv, device=jc.device)[:, None]
+    fidx = (lane * f + problem.frame_idx).reshape(-1)
+    pidx = (lane * p + problem.point_idx).reshape(-1)
+    jc, jp, r = jc.reshape(-1, 2, 6), jp.reshape(-1, 2, 3), r.reshape(-1, 2)
+    u = _segment_sum(torch.einsum("nri,nrj->nij", jc, jc), fidx, nv * f).reshape(nv, f, 6, 6)
+    b_c = -_segment_sum(torch.einsum("nri,nr->ni", jc, r), fidx, nv * f).reshape(nv, f, 6)
+    v = _segment_sum(torch.einsum("nri,nrj->nij", jp, jp), pidx, nv * p).reshape(nv, p, 3, 3)
+    b_p = -_segment_sum(torch.einsum("nri,nr->ni", jp, r), pidx, nv * p)
+    w = torch.einsum("nri,nrj->nij", jc, jp)  # (V*N, 6, 3)
+    lam = lam[:, None, None, None]
+    eye6 = torch.eye(6, dtype=u.dtype, device=u.device)
+    eye3 = torch.eye(3, dtype=v.dtype, device=v.device)
+    u_d = u + lam * (u * eye6 + 1e-8 * eye6)
+    u_d = torch.where((torch.einsum("vfii->vf", u) < 1e-12)[..., None, None], eye6, u_d)
+    v_d = v + lam * (v * eye3 + 1e-8 * eye3)
+    v_trace = v[..., 0, 0] + v[..., 1, 1] + v[..., 2, 2]
+    v_d = torch.where((v_trace < 1e-12)[..., None, None], eye3, v_d)
+    v_inv = torch.linalg.inv_ex(v_d)[0].reshape(nv * p, 3, 3)
+
+    a = torch.zeros((nv * p, f, 6, 3), dtype=w.dtype, device=w.device)
+    a.index_put_((pidx, problem.frame_idx.reshape(-1)), w, accumulate=True)
+    a_flat = a.reshape(nv, p, f * 6, 3)
+    b_strip = torch.einsum("vpak,vpkl->vpal", a_flat, v_inv.reshape(nv, p, 3, 3))
+    s_cross = torch.einsum("vpak,vpbk->vab", b_strip, a_flat)
+    eye_f = torch.eye(f, dtype=u.dtype, device=u.device)
+    s = torch.einsum("vfij,fg->vfigj", u_d, eye_f).reshape(nv, f * 6, f * 6) - s_cross
+
+    y = torch.einsum("nij,njk->nik", w, v_inv[pidx])
+    red = _segment_sum(torch.einsum("nij,nj->ni", y, b_p[pidx]), fidx, nv * f).reshape(nv, f, 6)
+    rhs = (b_c - red).reshape(nv, f * 6)
+    delta_c = torch.linalg.solve_ex(s, rhs)[0].reshape(nv, f, 6)
+
+    wt_dc = _segment_sum(torch.einsum("nij,ni->nj", w, delta_c.reshape(-1, 6)[fidx]), pidx, nv * p)
+    delta_p = torch.einsum("pij,pj->pi", v_inv, b_p - wt_dc).reshape(nv, p, 3)
+    return delta_c, delta_p
+
+
+def solve_ba_batch(problem: BAProblem, config: SolverConfig = SolverConfig()) -> BAResult:
+    """(V,) independent problems stacked on a leading axis and padded to
+    common (F, P, N) — the reference's ``jax.vmap(solve_ba)`` over padded
+    problems (``parallel/batch.py``). Every field carries the lane axis
+    (``intrinsics`` (V, 3, 3)); padded observations are masked, padded
+    cameras and points unobserved. Each lane keeps its own damping, cost,
+    iteration count and stop, and a finished lane is frozen, as under
+    ``vmap`` of one ``while_loop``; the loop reads one "any lane active"
+    flag per iteration. ``iterations`` and the other result fields are
+    per lane."""
+    problem = _canonical(problem)
+    nv, f = problem.cam_params.shape[:2]
+    _check_one_device(problem.points.shape[1], f, config, problem.points.dtype.itemsize)
+    residuals = vmap(_residuals)
+    jacobians = vmap(_obs_jacobians)
+    fixed = (problem.intrinsics, problem.obs, problem.frame_idx, problem.point_idx, problem.mask)
+    weighted = fixed if problem.weight is None else fixed + (problem.weight,)
+
+    def costs(cam, pts):  # (V,) 0.5 * sum r^2 per lane
+        r = residuals(cam, pts, *weighted)
+        return 0.5 * torch.sum(r * r, dim=(1, 2))
+
+    cam, pts = problem.cam_params, problem.points
+    cost = costs(cam, pts)
+    lam = torch.full((nv,), config.init_lambda, dtype=cam.dtype, device=cam.device)
+    it = torch.zeros(nv, dtype=torch.int64, device=cam.device)
+    active = torch.full((nv,), config.max_iters > 0, dtype=torch.bool, device=cam.device)
+    while config.max_iters > 0:
+        r = residuals(cam, pts, *weighted)
+        jc, jp = jacobians(cam, pts, *weighted)
+
+        def attempt(lam_try):
+            dc, dp = _solve_normal_equations_batch(problem._replace(cam_params=cam, points=pts), lam_try, jc, jp, r)
+            return cam + dc, pts + dp, costs(cam + dc, pts + dp)
+
+        c1_cam, c1_pts, c1 = attempt(lam)
+        c2_cam, c2_pts, c2 = attempt(lam * config.lambda_up**2)
+        use1, improved, new_cost, new_lam, done = _lm_decision(config, cost, lam, c1, c2)
+        # Lanes that have stopped keep their state.
+        step = (active & improved)[:, None, None]
+        cam = torch.where(step, torch.where(use1[:, None, None], c1_cam, c2_cam), cam)
+        pts = torch.where(step, torch.where(use1[:, None, None], c1_pts, c2_pts), pts)
+        cost = torch.where(active, new_cost, cost)
+        lam = torch.where(active, new_lam, lam)
+        it = it + active.to(torch.int64)
+        active = active & ~done & (it < config.max_iters)
+        if not bool(active.any()):  # the one host read per iteration
+            break
+
+    r_px = residuals(cam, pts, *fixed)
+    rmse = torch.sqrt(torch.sum(r_px * r_px, dim=(1, 2)) / torch.clamp(problem.mask.sum(1), min=1))
     return BAResult(cam, pts, cost, rmse, it, lam)
 
 

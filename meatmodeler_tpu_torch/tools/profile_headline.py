@@ -1,7 +1,7 @@
 """Time and profile the port's headline runs on one GPU.
 
     python3 -m meatmodeler_tpu_torch.tools.profile_headline [--warm-runs 10] [--out FILE]
-        [--paths known,detector,markerless]
+        [--paths known,detector,markerless,batch,pipelined,odometry]
 
 It renders the headline clip on the card (300 frames, 1920x1080, seed 0,
 with its ground-truth board corners) and profiles two paths through
@@ -31,6 +31,22 @@ Each path runs four ways:
   4. once under ``torch.profiler``: device busy time (the union of kernel,
      copy and memset intervals), kernel launches, and the busy share of that
      run's wall time (the profiler slows the host, so the share is a floor).
+
+The multi-video entry points and the odometry run the same four ways
+(``profile_entry``; their stage seconds are summed over the videos):
+
+  batch: ``parallel.batch.process_batch`` on the JAX package's batch row
+    (``batch_clips``: 8 clips of 60 frames, 1920x1080, seeds 100-107) with
+    ``batch_config()``, no corners;
+  pipelined: ``parallel.pipelined.process_batch_pipelined`` on two
+    300-frame clips (the headline clip and a seed-7 render, ``pp_clips``)
+    with ``headline_config()`` and their corners, each warm run followed by
+    the same two through ``process`` one after the other;
+  odometry: ``odometry.chain_poses`` over the board-free clip with the
+    scene's K; its accuracy is the chained rotations' error against the
+    renderer's orbit (``odometry_accuracy``), and its synced run times the
+    calls of each step (``ODOMETRY_STAGES``); its profiled run, and a count
+    of its host syncs, take the first 20 steps.
 
 One summary line per phase goes to stdout; everything goes as JSON to
 ``--out`` (default ``build/profile_headline.json``), one entry per path.
@@ -62,9 +78,12 @@ from meatmodeler_tpu_torch.config import (
     VolumeConfig,
 )
 from meatmodeler_tpu_torch import pipeline
-from meatmodeler_tpu_torch.geometry import so3
+from meatmodeler_tpu_torch.geometry import ransac, so3, triangulation
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
-from meatmodeler_tpu_torch.ops import clahe_cuda
+from meatmodeler_tpu_torch.odometry import chain_poses
+from meatmodeler_tpu_torch.ops import clahe, clahe_cuda, features, klt
+from meatmodeler_tpu_torch.parallel.batch import process_batch
+from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
 from meatmodeler_tpu_torch.pipeline import process
 from meatmodeler_tpu_torch.solvers import bundle_adjust
 from meatmodeler_tpu_torch.utils.alignment import umeyama
@@ -72,14 +91,41 @@ from meatmodeler_tpu_torch.utils.alignment import umeyama
 REPO = Path(__file__).resolve().parents[2]
 HEADLINE_FRAMES = 300
 MARKERLESS_FRAMES = 120
+# The JAX package's batch row (bench.py:819-837).
+BATCH_FRAMES = 60
+BATCH_SEEDS = tuple(range(100, 108))
+# The second clip of its pipelined row (bench.py:1019-1026).
+PP_SEED = 7
 
 
-def headline_clip(device):
-    """The headline scene (the JAX package's ``bench.py`` scene) and its clip
-    rendered on ``device``."""
-    scene = TurntableScene(image_size=(1920, 1080), focal=1500.0, noise_sigma=1.5)
-    frames, _, corners = render_sequence(scene, HEADLINE_FRAMES, seed=0, backend="torch", device=device)
+def headline_scene() -> TurntableScene:
+    """The headline scene: the JAX package's ``bench.py`` scene."""
+    return TurntableScene(image_size=(1920, 1080), focal=1500.0, noise_sigma=1.5)
+
+
+def headline_clip(device, seed=0):
+    """The headline scene and its 300-frame clip rendered on ``device``."""
+    scene = headline_scene()
+    frames, _, corners = render_sequence(scene, HEADLINE_FRAMES, seed=seed, backend="torch", device=device)
     return scene, frames, corners
+
+
+def batch_clips(device):
+    """The JAX package's batch row: 8 clips of 60 frames of the headline
+    scene, seeds 100-107, rendered on ``device`` (numpy uint8 BGR, about
+    3.0 GB in all). Returns (scene, clips)."""
+    scene = headline_scene()
+    clips = [render_sequence(scene, BATCH_FRAMES, seed=s, backend="torch", device=device)[0] for s in BATCH_SEEDS]
+    return scene, clips
+
+
+def batch_config() -> PipelineConfig:
+    """``headline_config()`` with the device chessboard detector: the
+    JAX package's batch row ran the default "auto" detector, which falls
+    back to cv2 on a miss; this package has no cv2, so a video without
+    corners needs the device detector."""
+    config = headline_config()
+    return dataclasses.replace(config, chessboard=dataclasses.replace(config.chessboard, detector="device"))
 
 
 def headline_config() -> PipelineConfig:
@@ -169,6 +215,30 @@ def markerless_accuracy(res, gt_poses, scene) -> dict:
     }
 
 
+def odometry_accuracy(res, gt_poses, first_steps=10) -> dict:
+    """Chained rotations against the renderer's orbit, both relative to
+    frame 0 (rotation is free of the monocular scale): the largest error
+    over the first ``first_steps`` steps (the JAX package's test bound is 6
+    degrees over 10 frames, ``tests/test_odometry.py``), the largest over
+    the clip and the error at its last frame (drift), in degrees; and the
+    fewest points tracked in a step."""
+
+    def rel(poses):
+        r = so3.exp(torch.from_numpy(np.asarray(poses, np.float64)[:, :3]))
+        return r @ r[0].T
+
+    r_est, r_gt = rel(res.poses), rel(gt_poses)
+    cos = (torch.einsum("tij,tij->t", r_est, r_gt) - 1.0) / 2.0
+    err = torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0, 1.0))).numpy()
+    return {
+        "rot_err_first_deg": float(err[1 : first_steps + 1].max()),
+        "rot_err_max_deg": float(err.max()),
+        "drift_deg": float(err[-1]),
+        "min_tracked": int(res.num_tracked[1:].min()),
+        "orbit_deg": float(torch.rad2deg(torch.arccos(torch.clamp((torch.trace(r_gt[-1]) - 1.0) / 2.0, -1.0, 1.0)))),
+    }
+
+
 def count_host_syncs(run):
     """Run ``run()`` and count its host syncs: LM iterations (each reads one
     flag back: calls of ``bundle_adjust._lm_decision``) and every
@@ -207,6 +277,57 @@ def count_host_syncs(run):
     return out, counts
 
 
+# The calls that make up one odometry step, timed in its synced run; the
+# ransac calls after ``estimate_relative_pose`` run inside it (their
+# seconds are part of its own).
+ODOMETRY_STAGES = (
+    (clahe, "clahe"),
+    (klt, "build_pyramid"),
+    (klt, "lucas_kanade"),
+    (ransac, "estimate_relative_pose"),
+    (triangulation, "triangulate_pairs"),
+    (features, "good_features"),
+    (ransac, "_eight_point"),
+    (ransac, "_project_to_essential"),
+    (ransac, "recover_pose"),
+    (ransac, "refine_relative_pose"),
+    (ransac, "find_homography_ransac"),
+)
+
+
+def synced_calls(run, targets):
+    """Run ``run()`` with each (module, name) of ``targets`` wrapped to sync
+    the device before and after and to add its wall seconds to a sum per
+    name. Returns (run's result, {name: seconds})."""
+    sums = {name: 0.0 for _, name in targets}
+    real = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync()
+                sums[name] += time.perf_counter() - t0
+
+        return call
+
+    for mod, name, fn in real:
+        setattr(mod, name, timed(name, fn))
+    try:
+        out = run()
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+    return out, sums
+
+
 def detector_config(config):
     """``config`` on the board-finding default path: the JAX package's
     default pass 1 ("device") and pass-2 enhance ("bgr_lab"), and the
@@ -217,11 +338,21 @@ def detector_config(config):
     )
 
 
-def _timed_process(frames, corners, config):
+def _timed(run):
+    """(wall seconds of ``run()`` up to a device sync, its result)."""
     t0 = time.perf_counter()
-    res = process(frames, config=config, known_corners=corners, device="cuda")
+    out = run()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, res
+    return time.perf_counter() - t0, out
+
+
+def _timed_process(frames, corners, config):
+    return _timed(lambda: process(frames, config=config, known_corners=corners, device="cuda"))
+
+
+def _quartiles(walls) -> dict:
+    q = statistics.quantiles(walls, n=4) if len(walls) > 1 else [walls[0]] * 3
+    return {"wall_s": walls, "median_s": q[1], "q1_s": q[0], "q3_s": q[2]}
 
 
 def _device_busy(trace_path: Path):
@@ -242,6 +373,22 @@ def _device_busy(trace_path: Path):
     return busy / 1e3, kernels
 
 
+def _profiled(label, run) -> dict:
+    """One run of ``run`` under ``torch.profiler``: wall seconds, device busy
+    ms, its share of the wall time, kernel launches."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        with torch.profiler.profile(activities=acts) as prof:
+            wall, _ = _timed(run)
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        busy_ms, kernels = _device_busy(trace)
+    print(f"[{label}] profiled: wall {wall} s device busy {busy_ms} ms share {busy_ms / 1e3 / wall} "
+          f"kernel launches {kernels}")
+    return {"wall_s": wall, "device_busy_ms": busy_ms, "busy_share": busy_ms / 1e3 / wall, "kernel_launches": kernels}
+
+
 def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_poses=None):
     """The four runs of one path; fills ``report[label]``. With ``gt_poses``
     (the marker-free path) the warm entry carries ``markerless_accuracy``
@@ -257,10 +404,9 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_po
     for _ in range(warm_runs):
         wall, res = _timed_process(frames, corners, config)
         walls.append(wall)
-    q = statistics.quantiles(walls, n=4) if len(walls) > 1 else [walls[0]] * 3
+    q = _quartiles(walls)
     rep["warm"] = {
-        "wall_s": walls, "median_s": q[1], "q1_s": q[0], "q3_s": q[2],
-        "fps_at_median": n_frames / q[1],
+        **q, "fps_at_median": n_frames / q["median_s"],
         "keyframes": res.metrics["counters"]["keyframes"], "points": len(res.points),
         "rmse_px": res.reprojection_rmse, "stages": res.metrics["timings"],
     }
@@ -268,8 +414,8 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_po
         rep["warm"]["volume_err"] = (res.volume - scene.volume) / scene.volume
     else:
         rep["warm"]["accuracy"] = markerless_accuracy(res, gt_poses, scene)
-    print(f"[{label}] warm x{len(walls)}: median {q[1]} s (q1 {q[0]}, q3 {q[2]}), {n_frames / q[1]} fps; "
-          f"keyframes {rep['warm']['keyframes']} points {rep['warm']['points']} "
+    print(f"[{label}] warm x{len(walls)}: median {q['median_s']} s (q1 {q['q1_s']}, q3 {q['q3_s']}), "
+          f"{n_frames / q['median_s']} fps; keyframes {rep['warm']['keyframes']} points {rep['warm']['points']} "
           f"rmse {res.reprojection_rmse} {json.dumps({k: v for k, v in rep['warm'].items() if k in ('volume_err', 'accuracy')})}")
 
     torch.cuda.reset_peak_memory_stats()
@@ -285,20 +431,7 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_po
     print(f"[{label}] synced: wall {wall} s peak alloc {peak_mib} MiB stages {json.dumps(res.metrics['timings'])} "
           f"pass1 split {json.dumps(pass1)}")
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    (REPO / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        with torch.profiler.profile(activities=acts) as prof:
-            wall, _ = _timed_process(frames, corners, config)
-        trace = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        busy_ms, kernels = _device_busy(trace)
-    rep["profiled"] = {
-        "wall_s": wall, "device_busy_ms": busy_ms, "busy_share": busy_ms / 1e3 / wall,
-        "kernel_launches": kernels,
-    }
-    print(f"[{label}] profiled: wall {wall} s device busy {busy_ms} ms share {busy_ms / 1e3 / wall} "
-          f"kernel launches {kernels}")
+    rep["profiled"] = _profiled(label, lambda: process(frames, config=config, known_corners=corners, device="cuda"))
 
     if gt_poses is not None:
         (wall, _), syncs = count_host_syncs(lambda: _timed_process(frames, corners, config))
@@ -306,11 +439,86 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_po
         print(f"[{label}] host syncs (sync debug mode on, wall {wall} s): {json.dumps(syncs)}")
 
 
+def _stage_sums(results) -> dict:
+    """Per-stage seconds summed over a list of results."""
+    sums = {}
+    for r in results:
+        for k, v in r.metrics["timings"].items():
+            sums[k] = sums.get(k, 0.0) + v
+    return sums
+
+
+def profile_entry(
+    label, run, n_frames, warm_runs, report, summarize, baseline=None, synced_stages=None, profiled_run=None
+):
+    """The four runs of an entry point other than ``process`` (``run()``
+    returns its results); fills ``report[label]``. ``summarize(results)``
+    gives the warm entry's counts and accuracy. ``baseline``: another
+    callable on the same input, run after each warm run (the pipelined
+    schedule's sequential counterpart), whose wall times are kept beside.
+    ``synced_stages``: (module, name) calls to time in the synced run (for
+    an entry point without stage timings); else the results' stages are
+    summed. ``profiled_run``: a shorter run for the profiled one, where a
+    trace of the whole run is too large to read back."""
+    rep = report[label] = {}
+    wall, out = _timed(run)
+    rep["cold"] = {"wall_s": wall}
+    print(f"[{label}] cold: wall {wall} s")
+
+    walls, base_walls = [], []
+    for _ in range(warm_runs):
+        wall, out = _timed(run)
+        walls.append(wall)
+        if baseline is not None:
+            wall_b, out_b = _timed(baseline)
+            base_walls.append(wall_b)
+    q = _quartiles(walls)
+    rep["warm"] = {**q, "fps_at_median": n_frames / q["median_s"], **summarize(out)}
+    print(f"[{label}] warm x{len(walls)}: median {q['median_s']} s (q1 {q['q1_s']}, q3 {q['q3_s']}), "
+          f"{n_frames / q['median_s']} fps; {json.dumps(summarize(out))}")
+    if baseline is not None:
+        qb = _quartiles(base_walls)
+        rep["baseline"] = {**qb, **summarize(out_b)}
+        print(f"[{label}] baseline (one after the other) x{len(base_walls)}: median {qb['median_s']} s "
+              f"(q1 {qb['q1_s']}, q3 {qb['q3_s']}); {json.dumps(summarize(out_b))}")
+
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["MEATMODELER_SYNC_STAGES"] = "1"
+    try:
+        if synced_stages:
+            wall, (out, stages) = _timed(lambda: synced_calls(run, synced_stages))
+        else:
+            wall, out = _timed(run)
+            stages = _stage_sums(out)
+    finally:
+        del os.environ["MEATMODELER_SYNC_STAGES"]
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    rep["synced"] = {"wall_s": wall, "stages_summed": stages, "peak_alloc_mib": peak_mib}
+    print(f"[{label}] synced: wall {wall} s peak alloc {peak_mib} MiB stages summed {json.dumps(stages)}")
+
+    rep["profiled"] = _profiled(label, profiled_run or run)
+
+
+def batch_summary(scene):
+    def summarize(results):
+        return {
+            "keyframes": [r.metrics["counters"]["keyframes"] for r in results],
+            "points": [len(r.points) for r in results],
+            "rmse_px": [r.reprojection_rmse for r in results],
+            "volume_err": [(r.volume - scene.volume) / scene.volume for r in results],
+            "low_confidence": [r.volume_confidence["low_confidence"] for r in results],
+            "ba_iterations": [r.metrics["counters"]["ba_iterations"] for r in results],
+        }
+
+    return summarize
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--warm-runs", type=int, default=10)
     ap.add_argument("--out", default=str(REPO / "build" / "profile_headline.json"))
-    ap.add_argument("--paths", default="known,detector,markerless", help="comma-separated subset to run")
+    ap.add_argument("--paths", default="known,detector,markerless,batch,pipelined,odometry",
+                    help="comma-separated subset to run")
     args = ap.parse_args(argv)
     paths = args.paths.split(",")
     if not torch.cuda.is_available():
@@ -331,10 +539,45 @@ def main(argv=None) -> int:
         if "detector" in paths:
             profile_path("detector", scene, frames, None, detector_config(config), args.warm_runs, report)
         del frames
-    if "markerless" in paths:
+    if "markerless" in paths or "odometry" in paths:
         scene, frames, poses = markerless_clip("cuda")
         report["markerless_frames"] = len(frames)
-        profile_path("markerless", scene, frames, None, markerless_config(), args.warm_runs, report, gt_poses=poses)
+        if "markerless" in paths:
+            profile_path("markerless", scene, frames, None, markerless_config(), args.warm_runs, report, gt_poses=poses)
+        if "odometry" in paths:
+            # The profiled run and the sync count take the first 20 steps.
+            steps = 20
+
+            def odometry(n=None):
+                return chain_poses(frames[:n], scene.intrinsics, device="cuda")
+
+            profile_entry(
+                "odometry", odometry, len(frames), args.warm_runs, report, lambda res: odometry_accuracy(res, poses),
+                synced_stages=ODOMETRY_STAGES, profiled_run=lambda: odometry(steps + 1),
+            )
+            report["odometry"]["profiled"]["steps"] = steps
+            _, syncs = count_host_syncs(lambda: odometry(steps + 1))
+            report["odometry"]["host_syncs"] = {"steps": steps, **syncs}
+            print(f"[odometry] host syncs over {steps} steps (sync debug mode on): {json.dumps(syncs)}")
+        del frames
+    if "batch" in paths:
+        scene, clips = batch_clips("cuda")
+        config = batch_config()
+        profile_entry(
+            "batch", lambda: process_batch(clips, config=config, device="cuda"), sum(len(c) for c in clips),
+            args.warm_runs, report, batch_summary(scene),
+        )
+        del clips
+    if "pipelined" in paths:
+        scene, f0, c0 = headline_clip("cuda")
+        _, f7, c7 = headline_clip("cuda", seed=PP_SEED)
+        clips, corners = [f0, f7], [c0, c7]
+        profile_entry(
+            "pipelined", lambda: process_batch_pipelined(clips, config=headline_config(), known_corners=corners),
+            2 * HEADLINE_FRAMES, args.warm_runs, report, batch_summary(scene),
+            baseline=lambda: [process(v, config=headline_config(), known_corners=c, device="cuda")
+                              for v, c in zip(clips, corners)],
+        )
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

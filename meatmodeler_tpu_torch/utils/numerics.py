@@ -1,17 +1,49 @@
 """NaN/Inf gates at stage boundaries (torch twin of
-``meatmodeler_tpu/utils/numerics.py::check_finite``).
+``meatmodeler_tpu/utils/numerics.py::check_finite``), and the numeric
+helpers the port shares.
 
-No-op unless ``MEATMODELER_CHECK_NUMERICS=1``: the check reads the tensors
-back to the host, so it is a debug mode, not a production path.
+``check_finite`` is a no-op unless ``MEATMODELER_CHECK_NUMERICS=1``: the
+check reads the tensors back to the host, so it is a debug mode, not a
+production path.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import threading
 
 import torch
 
-__all__ = ["NumericsError", "checks_enabled", "check_finite", "nanmedian"]
+__all__ = ["NumericsError", "checks_enabled", "check_finite", "load_cuda_linalg", "nanmedian", "one_thread_at_a_time"]
+
+# torch.func's forward-mode AD numbers its dual levels process-wide and
+# needs them closed in the order they were opened, so two host threads
+# inside ``jacfwd`` at once corrupt each other's levels. The multi-video
+# entry points run the geometry on two threads.
+_FORWARD_AD_LOCK = threading.Lock()
+
+
+def one_thread_at_a_time(fn):
+    """``fn`` (a ``torch.func.jacfwd`` transform) behind the process-wide
+    forward-AD lock, so it can be called from several host threads."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with _FORWARD_AD_LOCK:
+            return fn(*args, **kwargs)
+
+    return call
+
+
+def load_cuda_linalg(device: torch.device) -> None:
+    """Load torch's CUDA linear-algebra library now, on the calling thread.
+    torch loads it at the first CUDA ``torch.linalg`` call, and that load is
+    not thread-safe: two host threads reaching it at once fail with "lazy
+    wrapper should be called at most once". The multi-video entry points
+    call this before they start their worker threads."""
+    if device.type == "cuda":
+        torch.linalg.eigh(torch.eye(2, device=device))
 
 
 def nanmedian(x: torch.Tensor) -> torch.Tensor:

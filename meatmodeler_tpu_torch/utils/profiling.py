@@ -20,7 +20,7 @@ import torch
 
 logger = logging.getLogger("meatmodeler")
 
-__all__ = ["Metrics", "logger"]
+__all__ = ["Metrics", "logger", "profile_run"]
 
 
 def _sync_stages() -> bool:
@@ -78,3 +78,28 @@ class Metrics:
     def as_dict(self) -> Dict[str, Any]:
         self.flush()
         return {"timings": dict(self.timings), "counters": dict(self.counters)}
+
+
+@contextlib.contextmanager
+def profile_run():
+    """A ``torch.profiler`` trace of the enclosed run (host and, where there
+    is a card, CUDA activity) written as a chrome trace into the directory
+    ``MEATMODELER_PROFILE=<dir>`` names (view it in ui.perfetto.dev). No-op
+    when the variable is unset."""
+    out_dir = os.environ.get("MEATMODELER_PROFILE")
+    if not out_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(out_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)

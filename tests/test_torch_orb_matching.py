@@ -68,6 +68,28 @@ def test_detect_and_compute_matches(features, i):
     np.testing.assert_allclose(t_resp[both], np.asarray(jf.response)[both], rtol=1e-4, atol=1e-9)
 
 
+@pytest.mark.parametrize("grid", [2, 4])
+def test_grid_cells_selection_matches(frames, grid):
+    """``grid_cells`` bucketed selection (the reference's ``approx_max_k``
+    is an exact sort on the CPU): keypoints, octaves and descriptors equal
+    to the JAX package's slot for slot, two images in one batch, one of
+    them with a height that does not divide by the grid."""
+    imgs = [frames[0], frames[1][:-3]]
+    for img in imgs:
+        jf = jorb.detect_and_compute(jnp.asarray(img), grid_cells=grid, **ORB_KW)
+        tf = torb.detect_and_compute(tt(img[None]), grid_cells=grid, **ORB_KW)
+        t_mask = tf.mask[0].numpy()
+        np.testing.assert_array_equal(t_mask, np.asarray(jf.mask))
+        assert t_mask.sum() > 200
+        np.testing.assert_array_equal(tf.xy[0].numpy()[t_mask], np.asarray(jf.xy)[t_mask])
+        np.testing.assert_array_equal(tf.octave[0].numpy(), np.asarray(jf.octave))
+        np.testing.assert_array_equal(tf.descriptors[0].numpy()[t_mask], np.asarray(jf.descriptors)[t_mask])
+    # Bucketing changes the selection (it is not the global top-k).
+    flat = torb.detect_and_compute(tt(frames[:1]), **ORB_KW)
+    bucketed = torb.detect_and_compute(tt(frames[:1]), grid_cells=grid, **ORB_KW)
+    assert not torch.equal(flat.xy[flat.mask], bucketed.xy[bucketed.mask])
+
+
 def _match_both(dq, dt, mq, mt, **kw):
     j = jmatch.match_descriptors(jnp.asarray(dq), jnp.asarray(dt), jnp.asarray(mq), jnp.asarray(mt), **kw)
     t = tmatch.match_descriptors(tt(dq), tt(dt), tt(mq), tt(mt), **kw)

@@ -49,7 +49,11 @@ def test_no_import_of_the_jax_package_or_bench(path):
     assert not _imported_roots(path) & {"meatmodeler_tpu", "bench", "jax", "jaxlib", "cv2"}
 
 
-@pytest.mark.parametrize("module", ["geometry/ransac.py", "two_view.py", "utils/alignment.py"])
+@pytest.mark.parametrize(
+    "module",
+    ["geometry/ransac.py", "two_view.py", "utils/alignment.py", "parallel/batch.py", "parallel/pipelined.py",
+     "odometry.py", "cli.py"],
+)
 def test_scan_covers_the_marker_free_modules(module):
     assert REPO / "meatmodeler_tpu_torch" / module in PORT_FILES
 

@@ -110,3 +110,25 @@ def test_markerless_accuracy_of_an_exact_reconstruction():
     acc = profile_headline.markerless_accuracy(res, poses, scene)
     assert acc["aligned_pose_rmse"] < 1e-6 and acc["point_surface_residual_median"] < 1e-6
     assert abs(acc["gauge_scale"] - 1.0) < 1e-6
+
+
+def test_synced_calls_time_each_odometry_call_and_restore_them():
+    """The odometry's synced run: every call of ``ODOMETRY_STAGES`` is timed
+    (the run's result unchanged), and the modules get their functions back."""
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+    from meatmodeler_tpu_torch.odometry import chain_poses
+
+    scene = TurntableScene(image_size=(200, 150), focal=210.0, noise_sigma=0.5)
+    frames, _, _ = render_sequence(scene, 3, seed=3)
+    before = [getattr(m, n) for m, n in profile_headline.ODOMETRY_STAGES]
+
+    def run():
+        return chain_poses(frames, scene.intrinsics, generator=torch.Generator().manual_seed(0), device="cpu")
+
+    res, sums = profile_headline.synced_calls(run, profile_headline.ODOMETRY_STAGES)
+    assert [getattr(m, n) for m, n in profile_headline.ODOMETRY_STAGES] == before
+    assert set(sums) == {n for _, n in profile_headline.ODOMETRY_STAGES}
+    for name in ("clahe", "build_pyramid", "lucas_kanade", "estimate_relative_pose", "triangulate_pairs"):
+        assert sums[name] > 0, name
+    again = run()
+    assert (res.poses == again.poses).all()
