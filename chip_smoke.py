@@ -39,10 +39,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   7. the multi-video batch, the JAX package's batch row: 8 clips of 60
      frames, 1080p, seeds 100-107, rendered on the card, through
      ``process_batch`` with ``batch_config()`` and no corners, twice (launch
-     counts reset just before); every clip must take the batch prepass and
-     meet the rmse and volume bounds, and each kernel must launch once per
-     clip; per-clip rmse and volume error are printed beside the JAX
-     package's record;
+     counts reset just before), the second time with ``mesh=make_mesh()``
+     over every visible GPU; every clip must take the batch prepass and
+     meet the rmse and volume bounds, each kernel must launch once per
+     clip, and the mesh run's BA problems, solved in float64 with and
+     without the mesh, must take the same iterations and rmse (rtol 1e-4;
+     the whole runs' difference is printed);
+     per-clip rmse and volume error are printed beside the JAX package's
+     record;
   8. the pipelined schedule: the headline clip and a seed-7 render (300
      frames each, with their corners) through ``process_batch_pipelined``
      with ``headline_config()`` (launch counts reset just before), the same
@@ -56,7 +60,27 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      (one 720x1280 frame) and at a batch clip's keyframes; last, the
      command line as a subprocess, ``python3 -m meatmodeler_tpu_torch.cli``
      on one batch clip saved as ``.npy`` with ``--detector device --json``,
-     then on two with ``--schedule mesh``: exit 0 and the JSON payload's keys.
+     then on two with ``--schedule mesh``: exit 0 and the JSON payload's keys;
+ 10. the mesh (``parallel.sharded``), first on four virtual shards of
+     ``cuda:0``: (b) ``solve_ba_point_sharded`` on the known path's BA
+     problem (recorded in phase 4) and on the JAX package's 12-frame,
+     10240-point sharding-test problem, each against the unsharded
+     ``solve_ba``: in float64 to the JAX package's bounds (rmse rtol 1e-4,
+     equal iterations, cameras atol 1e-4, points atol 1e-3), in float32 the
+     rmse (rtol 1e-4), its parameter differences printed beside the
+     unsharded solve's own under a permutation of its observations (in
+     float32 the known path's problem moves further than those bounds under
+     any change of summation order), both timed; (c)
+     ``match_descriptors_tp`` over ``model`` on the known path's first
+     keyframe pair (4096 x 256-bit descriptors, recorded in phase 4) against
+     ``match_descriptors(cross_check=False)``: the same good mask and
+     indices; (d) ``preprocess_sharded`` over ``data`` on 32 headline frames
+     (launch counts reset just before) against ``enhanced_grey`` on one
+     device (atol 1e-3), then the kernels compared and timed at one shard's
+     CLAHE input; (e) the memory band: ``adjust_points`` with a budget half
+     the known path's strip raises on one GPU and shards on several; (f)
+     with more than one GPU, (b)-(d) again over the distinct GPUs, through
+     NCCL, and the kernels compared on ``cuda:1``.
 Kernel times are device medians with a cold L2 and the host's launch time
 hidden (``tools/clahe_bench.time_ms``), each printed beside the bytes the
 kernel must move, its bound at the card's memory rate and the share of it
@@ -78,17 +102,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from meatmodeler_tpu_torch.config import SolverConfig
+from meatmodeler_tpu_torch.geometry import projection
 from meatmodeler_tpu_torch.io import native_ops
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
-from meatmodeler_tpu_torch.ops import clahe_cuda, color
+from meatmodeler_tpu_torch.ops import clahe_cuda, color, matching
+from meatmodeler_tpu_torch.parallel import sharded
 from meatmodeler_tpu_torch.parallel.batch import process_batch
 from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
 from meatmodeler_tpu_torch.pipeline import process
+from meatmodeler_tpu_torch.solvers import bundle_adjust
 from meatmodeler_tpu_torch.tools.clahe_bench import time_kernels
 from meatmodeler_tpu_torch.tools.profile_headline import (
     HEADLINE_FRAMES,
     PP_SEED,
+    SHARDED_PROBLEM,
     batch_clips,
     batch_config,
     detector_config,
@@ -98,6 +127,10 @@ from meatmodeler_tpu_torch.tools.profile_headline import (
     markerless_clip,
     markerless_config,
     odometry_accuracy,
+    point_sharded_check,
+    recording,
+    synthetic_ba_problem,
+    with_dtype,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -295,15 +328,19 @@ def run_batch(scene, clips):
     config = batch_config()
     n_frames = sum(len(c) for c in clips)
     clahe_cuda.reset_launches()
-    for run in range(2):
+    rmse = []
+    for run, mesh in enumerate((None, sharded.make_mesh())):
         before = dict(clahe_cuda.LAUNCHES)
         t0 = time.perf_counter()
-        results = process_batch(clips, config=config, device="cuda")
+        with recording(sharded, "solve_ba_batch") as solves:
+            results = process_batch(clips, config=config, device="cuda", mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = {k: clahe_cuda.LAUNCHES[k] - before[k] for k in KERNELS}
-        print(f"[batch] run {run}: wall {wall:.3f} s for {len(clips)} clips ({n_frames / wall:.2f} fps aggregate), "
-              f"batch solve {results[0].metrics['counters']['batch_solve_s']:.4f} s, launches {launched}")
+        rmse.append(np.array([r.reprojection_rmse for r in results]))
+        on = "no mesh" if mesh is None else f"mesh {mesh.shape} over {[str(r[0]) for r in mesh.devices]}"
+        print(f"[batch] run {run} ({on}): wall {wall:.3f} s for {len(clips)} clips ({n_frames / wall:.2f} fps "
+              f"aggregate), batch solve {results[0].metrics['counters']['batch_solve_s']:.4f} s, launches {launched}")
         for i, res in enumerate(results):
             c = res.metrics["counters"]
             vol_err = check_clip(res, scene)
@@ -315,6 +352,20 @@ def run_batch(scene, clips):
                 raise AssertionError(f"clip {i} did not take the batch prepass")
         if min(launched.values()) < len(clips):
             raise AssertionError(f"a kernel did not launch for every clip of the batch: {launched}")
+    # Two runs' BA problems differ by the card's unordered scatter-adds
+    # upstream of the solve, and in float32 such rounding can move where
+    # an LM lane stops: the mesh run's own problems, solved again with and
+    # without the mesh in float64, isolate what the mesh changes.
+    mesh, problem = solves[-1][0][:2]
+    problem = with_dtype(problem, torch.float64)
+    with_mesh = sharded.solve_ba_batch(mesh, problem, config=config.solver)
+    without = bundle_adjust.solve_ba_batch(problem, config=config.solver)
+    diff = float(((with_mesh.rmse - without.rmse).abs() / without.rmse).max())
+    print(f"[batch] per-clip rmse: its BA problems in float64, with the mesh / without: max relative difference "
+          f"{diff:.3g}, iterations {with_mesh.iterations.tolist()} / {without.iterations.tolist()}; mesh run / run "
+          f"without (whole runs, float32): {float(np.max(np.abs(rmse[1] - rmse[0]) / rmse[0])):.3g}")
+    if not (diff <= 1e-4 and torch.equal(with_mesh.iterations, without.iterations)):
+        raise AssertionError("the batch solve over a mesh disagrees with the solve without")
     return dict(clahe_cuda.LAUNCHES), results[0].metrics["counters"]
 
 
@@ -396,6 +447,115 @@ def run_cli(clips):
         Path(p).unlink()
 
 
+def check_tp_matching(devices, pair):
+    """(c): ``match_descriptors_tp`` over ``model`` against the one-device
+    matcher without cross-check: the same good mask and indices."""
+    q, t, qm, tm = pair
+    m = 1 << (min(len(devices), t.shape[0]).bit_length() - 1)  # a power of two divides the 4096 train rows
+    mesh = sharded.make_mesh(data=1, model=m, devices=devices[:m])
+    t0 = time.perf_counter()
+    idx, _, good = sharded.match_descriptors_tp(mesh, q, t, qm, tm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = matching.match_descriptors(q, t, qm, tm, cross_check=False, max_matches=q.shape[0])
+    ref_idx = torch.full((q.shape[0],), -1, dtype=torch.int64, device=q.device)
+    ref_good = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+    ref_idx[ref.query_idx[ref.mask]] = ref.train_idx[ref.mask]
+    ref_good[ref.query_idx[ref.mask]] = True
+    good = good.to(q.device)
+    same = torch.equal(good, ref_good) and torch.equal(idx.to(q.device)[good], ref_idx[good])
+    print(f"[mesh] match_descriptors_tp over {m} ({mesh.devices[0][0]}...): {tuple(q.shape)} x {tuple(t.shape)}, "
+          f"{int(good.sum())} good, {wall * 1e3:.3f} ms; same as one device: {same}")
+    if not same:
+        raise AssertionError("match_descriptors_tp disagrees with match_descriptors")
+
+
+def check_preprocess(devices, frames):
+    """(d): ``preprocess_sharded`` over ``data`` against ``enhanced_grey`` on
+    one device; returns the launches of the sharded run."""
+    mesh = sharded.make_mesh(data=len(devices), devices=devices)
+    frames = frames[: len(frames) - len(frames) % len(devices)]
+    clahe_cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = sharded.preprocess_sharded(mesh, frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(clahe_cuda.LAUNCHES)
+    err = float((out - clahe_mod.enhanced_grey(frames.to(out.device))).abs().max())
+    print(f"[mesh] preprocess_sharded over {len(devices)} ({devices[0]}...): {tuple(frames.shape)} in {wall:.4f} s, "
+          f"max|d| against one device {err:.3g}, launches {launches}")
+    if not err <= 1e-3:
+        raise AssertionError(f"preprocess_sharded disagrees with enhanced_grey: {err}")
+    if min(launches.values()) < len(devices):
+        raise AssertionError(f"a kernel did not launch on every shard of preprocess_sharded: {launches}")
+    return launches
+
+
+def check_band(problem):
+    """(e): ``adjust_points`` with a budget half the problem's bucket-padded
+    strip: it raises on one GPU, and on several shards over two of them and
+    matches the unsharded solve (rmse rtol 1e-4, points atol 5e-3: the JAX
+    package's bounds for a banded ``adjust_points``), in float64 (see
+    ``point_sharded_check``)."""
+    problem = with_dtype(problem, torch.float64)
+    n_f, n_p = problem.cam_params.shape[0], problem.points.shape[0]
+    cfg = SolverConfig()
+    strip = 2 * bundle_adjust._ceil_to(n_p, cfg.bucket[1]) * bundle_adjust._ceil_to(n_f, cfg.bucket[0]) * 18 * 8
+    args = (projection.extrinsics_from_params(problem.cam_params), problem.intrinsics, problem.points, problem.obs,
+            problem.frame_idx, problem.point_idx)
+    banded = SolverConfig(hbm_strip_budget_bytes=strip // 2 + 1)
+    if torch.cuda.device_count() == 1:
+        try:
+            bundle_adjust.adjust_points(*args, weights=problem.weight, config=banded)
+        except ValueError as e:
+            if "memory band" not in str(e):
+                raise
+            print(f"[mesh] band at {strip // 2 + 1} B (strip {strip} B), one GPU: refused: {e}")
+            return
+        raise AssertionError("the memory band did not refuse a problem that needs two GPUs on one")
+    pts_b, _, res_b = bundle_adjust.adjust_points(*args, weights=problem.weight, config=banded)
+    pts_1, _, res_1 = bundle_adjust.adjust_points(*args, weights=problem.weight)
+    d_pts = float((pts_b - pts_1).abs().max())
+    print(f"[mesh] band at {strip // 2 + 1} B (strip {strip} B) over {torch.cuda.device_count()} GPUs: rmse "
+          f"{float(res_b.rmse):.6f} against {float(res_1.rmse):.6f} unsharded, points max|d| {d_pts:.3g}")
+    if not (abs(float(res_b.rmse) - float(res_1.rmse)) <= 1e-4 * float(res_1.rmse) and d_pts <= 5e-3):
+        raise AssertionError("the banded adjust_points disagrees with the unsharded one")
+
+
+def run_mesh(dev, problem, pair, frames, err, timings):
+    """Phase 10. Returns the launches of its ``preprocess_sharded`` runs."""
+    n_gpus = torch.cuda.device_count()
+    print(f"[mesh] {n_gpus} visible GPU(s)")
+    synthetic = synthetic_ba_problem(dev, **SHARDED_PROBLEM)
+    meshes = [["cuda:0"] * 4] + ([[f"cuda:{i}" for i in range(n_gpus)]] if n_gpus > 1 else [])
+    launches = {k: 0 for k in KERNELS}
+    for devices in meshes:
+        devices = [torch.device(d) for d in devices]
+        for name, pr in (("known-path BA problem", problem), ("JAX sharding-test problem", synthetic)):
+            out = point_sharded_check(pr, devices)
+            print(f"[mesh] solve_ba_point_sharded, {name} ({out['frames']} frames, {out['points']} points, "
+                  f"{out['observations']} observations) over {out['devices']}: {out['sharded_s']:.4f} s against "
+                  f"{out['unsharded_s']:.4f} s unsharded (float32)")
+            for label, key in (("float32, sharded / unsharded", "float32"),
+                               ("float32, unsharded / itself with its observations permuted", "float32_unsharded_permuted"),
+                               ("float64, sharded / unsharded", "float64")):
+                c = out[key]
+                print(f"  {label}: iterations {c['iterations']}, rmse {c['rmse']}, cameras max|d| "
+                      f"{c['cam_max_abs_diff']:.3g}, points max|d| {c['points_max_abs_diff']:.3g}")
+        check_tp_matching(devices, pair)
+        for k, v in check_preprocess(devices, frames).items():
+            launches[k] += v
+    # One shard's CLAHE input: the LAB lightness of 8 frames at full size.
+    shard = color.bgr_to_lab(frames[: len(frames) // 4].to(dev))[..., 0].contiguous()
+    compare_kernels(dev, [("preprocess_sharded shard", shard, (8, 8))], err)
+    time_at("preprocess_sharded shard", shard, timings)
+    check_band(problem)
+    if n_gpus > 1:
+        compare_kernels(torch.device("cuda:1"), [(f"on cuda:1 {label}", img.to("cuda:1"), tiles)
+                                                for label, img, tiles in seeded_cases(dev)[:2]], err)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -420,8 +580,14 @@ def main() -> int:
     config = headline_config()
     timings = {}
 
-    # Phase 4: known corners, host pass 1, grey enhance.
-    launches, c = run_path("known", scene, frames, corners, config)
+    # Phase 4: known corners, host pass 1, grey enhance; its BA problem and
+    # keyframe descriptors are recorded for phase 10.
+    with recording(bundle_adjust, "solve_ba") as solves, recording(matching, "match_descriptors") as matches:
+        launches, c = run_path("known", scene, frames, corners, config)
+    ba_problem = [args[0] for args, kwargs in solves if not kwargs.get("fix_points")][-1]
+    q, t, qm, tm = matches[-1][0][:4]
+    kf_pair = (q[0], t[0], qm[0], tm[0])
+    del solves, matches
     # Its CLAHE input: every keyframe, grey at half resolution.
     p2s = config.pass2_downscale
     keyframes = np.ascontiguousarray(frames[c["keyframe_indices"]])
@@ -480,6 +646,7 @@ def main() -> int:
     launches_p = run_pipelined(scene, [frames, frames7], [corners, corners7])
     for k in launches:
         launches[k] += launches_p[k]
+    frames32 = torch.from_numpy(np.ascontiguousarray(frames[:32]))
     del frames, frames7
 
     # Phase 9: odometry over the board-free clip, its kernels, the CLI.
@@ -491,6 +658,12 @@ def main() -> int:
     time_at("odometry frame", frame, timings)
     time_at("batch-clip keyframes", batch_kf, timings)
     run_cli(bclips)
+    del bclips
+
+    # Phase 10: the mesh.
+    launches_s = run_mesh(dev, ba_problem, kf_pair, frames32, err, timings)
+    for k in launches:
+        launches[k] += launches_s[k]
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "meatmodeler_tpu", "bench"))
     if loaded:
         raise AssertionError(f"the port loaded the JAX package or its bench: {loaded}")

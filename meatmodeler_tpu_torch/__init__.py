@@ -34,4 +34,8 @@ def __getattr__(name):
         from meatmodeler_tpu_torch.solvers import bundle_adjust
 
         return getattr(bundle_adjust, name)
+    if name == "Track":
+        from meatmodeler_tpu_torch.tracks import Track
+
+        return Track
     raise AttributeError(f"module 'meatmodeler_tpu_torch' has no attribute {name!r}")

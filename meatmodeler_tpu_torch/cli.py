@@ -25,7 +25,7 @@ def main(argv=None) -> int:
     )
     parser.add_argument("video", nargs="*", help="video file(s): .npy frame stack or .y4m; several videos reconstruct as a batch")
     parser.add_argument("-o", "--output", default="out", help="output prefix (writes <prefix>Cloud.ply; batches append _0, _1, ...)")
-    parser.add_argument("--schedule", choices=("mesh", "pipelined", "sequential"), default="mesh", help="multi-video schedule: every BA solved as one batch, ingest and solve on two threads, or one at a time")
+    parser.add_argument("--schedule", choices=("mesh", "pipelined", "sequential"), default="mesh", help="multi-video schedule: every BA solved as one batch (split over the GPUs where there are several), ingest and solve on two threads, or one at a time")
     parser.add_argument("--pattern", type=int, nargs=2, default=None, metavar=("W", "H"), help="chessboard inner corners")
     parser.add_argument("--side-length", type=float, default=None, help="board square size (world units)")
     parser.add_argument("--max-features", type=int, default=None, help="ORB feature budget per keyframe")
@@ -119,17 +119,11 @@ def main(argv=None) -> int:
             devices = None if args.device == "cuda" else (args.device, args.device)
             results = process_batch_pipelined(args.video, config=config, devices=devices, paths=paths)
         elif args.schedule == "mesh":
-            import torch
-
             from meatmodeler_tpu_torch.parallel.batch import process_batch
 
-            if args.device == "cuda" and torch.cuda.device_count() > 1:
-                print(
-                    "note: the batch solves on one GPU; solves spread over several GPUs are not part "
-                    "of this package yet",
-                    file=sys.stderr,
-                )
-            results = process_batch(args.video, config=config, paths=paths, device=args.device)
+            results = process_batch(
+                args.video, config=config, paths=paths, device=args.device, mesh=_batch_mesh(args.device, len(args.video))
+            )
         else:
             results = [
                 process(
@@ -165,6 +159,20 @@ def main(argv=None) -> int:
             if result.ply_path:
                 print(f"cloud written to:   {result.ply_path}")
     return 0
+
+
+def _batch_mesh(device: str, n_videos: int):
+    """The mesh a ``--schedule mesh`` batch solves on: its data axis sized
+    to the batch (a mesh over every GPU would pad the batch up to the GPU
+    count with redundant solves); None on one GPU and on the CPU."""
+    if device != "cuda":
+        return None
+    import torch
+
+    from meatmodeler_tpu_torch.parallel import sharded
+
+    data = min(torch.cuda.device_count(), n_videos)
+    return sharded.make_mesh(data=data, model=1) if data > 1 else None
 
 
 def _warmup(size, config, device) -> int:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["hat", "exp", "log"]
+__all__ = ["hat", "exp", "log", "exp_log_consistent"]
 
 # Below this angle the closed forms are replaced with Taylor expansions.
 _SMALL_ANGLE = 1e-6
@@ -105,3 +105,8 @@ def log(rot: torch.Tensor) -> torch.Tensor:
 
     out = torch.where(small[..., None], small_branch, generic)
     return torch.where(near_pi[..., None], pi_branch, out)
+
+
+def exp_log_consistent(rvec: torch.Tensor) -> torch.Tensor:
+    """Round-trip helper used in tests: log(exp(rvec))."""
+    return log(exp(rvec))

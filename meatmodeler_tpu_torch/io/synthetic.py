@@ -29,7 +29,7 @@ import torch
 
 from meatmodeler_tpu_torch.geometry import so3
 
-__all__ = ["TurntableScene", "camera_pose", "render_sequence"]
+__all__ = ["TurntableScene", "camera_pose", "render_sequence", "degrade_sequence"]
 
 
 def _speckle(px, py, pz, m):
@@ -364,3 +364,48 @@ def _render_frames_torch(scene, rots, tvecs, seed, color, device, chunk: int = 1
             frame = grey
         out.append(frame.to(torch.uint8).cpu().numpy())
     return np.concatenate(out)
+
+
+def degrade_sequence(frames: np.ndarray, kind: str, seed: int = 0, strength: float = 1.0) -> np.ndarray:
+    """A capture degradation applied to a rendered uint8 BGR clip after
+    rendering, so the ground truth (poses, corners, volume) is unchanged:
+    the JAX package's robustness families, from the same numpy draws.
+
+    Kinds: "noise" (additive Gaussian, sigma 8 * strength), "blur"
+    (horizontal box motion blur of ~9 * strength px), "flicker" (sinusoidal
+    gain, +-25% * strength over the clip), "occlusion" (a grey square of
+    ~18% * strength of the short side drifting over the board's region on
+    every third frame). "jpeg" (a JPEG round trip) needs cv2, which this
+    package does not use: it raises.
+    """
+    rng = np.random.default_rng(seed)
+    out = np.asarray(frames)
+    t, h, w = out.shape[:3]
+    if kind == "noise":
+        noisy = out.astype(np.float32) + rng.normal(0.0, 8.0 * strength, size=out.shape).astype(np.float32)
+        return np.clip(noisy, 0, 255).astype(np.uint8)
+    if kind == "blur":
+        k = max(3, int(round(9 * strength)) | 1)
+        # Horizontal box blur by cumulative sums, edge-padded.
+        pad = np.pad(out.astype(np.float32), ((0, 0), (0, 0), (k // 2, k // 2), (0, 0)), mode="edge")
+        cs = np.cumsum(pad, axis=2)
+        blurred = (cs[:, :, k - 1 :] - np.concatenate([np.zeros_like(cs[:, :, :1]), cs[:, :, :-k]], axis=2)) / k
+        return np.clip(blurred, 0, 255).astype(np.uint8)
+    if kind == "flicker":
+        phase = rng.uniform(0, 2 * np.pi)
+        gain = 1.0 + 0.25 * strength * np.sin(np.linspace(0, 6 * np.pi, t) + phase)
+        return np.clip(out.astype(np.float32) * gain[:, None, None, None], 0, 255).astype(np.uint8)
+    if kind == "jpeg":
+        raise NotImplementedError(
+            "degrade_sequence(kind='jpeg') encodes and decodes JPEG with cv2, which this package does not use"
+        )
+    if kind == "occlusion":
+        occ = out.copy()
+        side = int(min(h, w) * 0.18 * strength)
+        for i in range(0, t, 3):
+            cy = int(h * 0.62 + 0.1 * h * np.sin(i / 7.0))
+            cx = int(w * 0.5 + 0.25 * w * np.cos(i / 11.0))
+            y0, x0 = max(cy - side // 2, 0), max(cx - side // 2, 0)
+            occ[i, y0 : y0 + side, x0 : x0 + side] = 96
+        return occ
+    raise ValueError(f"unknown degradation kind: {kind!r}")

@@ -117,8 +117,10 @@ def clahe_lut(img: torch.Tensor, clip_limit: float, tiles: Tuple[int, int]) -> t
         raise ValueError(f"image {h}x{w} too small for a {ty}x{tx} tile grid")
     clip = max(1, int(clip_limit * th * tw / 256.0))
     lut = torch.empty((b, ty * tx, 256), dtype=torch.float32, device=img.device)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    code = lib.clahe_lut(img.data_ptr(), lut.data_ptr(), b, h, w, ty, tx, th, tw, clip, stream)
+    # The library's runtime calls act on the current device: make it the image's.
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        code = lib.clahe_lut(img.data_ptr(), lut.data_ptr(), b, h, w, ty, tx, th, tw, clip, stream)
     _raise_on(code, "clahe_lut_kernel")
     _count("clahe_lut")
     return lut
@@ -136,10 +138,11 @@ def clahe_apply(img: torch.Tensor, lut: torch.Tensor, tiles: Tuple[int, int]) ->
     lib = build()
     th, tw = tile_geometry(h, w, tiles)
     out = torch.empty_like(img)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    code = lib.clahe_apply(
-        img.data_ptr(), lut.data_ptr(), out.data_ptr(), b, h, w, ty, tx, th, tw, stream
-    )
+    with torch.cuda.device(img.device):  # its cudaFuncSetAttribute is per device
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        code = lib.clahe_apply(
+            img.data_ptr(), lut.data_ptr(), out.data_ptr(), b, h, w, ty, tx, th, tw, stream
+        )
     _raise_on(code, "clahe_apply_kernel")
     _count("clahe_apply")
     return out

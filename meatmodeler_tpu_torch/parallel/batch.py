@@ -1,11 +1,13 @@
-"""Several videos reconstructed together on one CUDA device (torch twin of
-``meatmodeler_tpu/parallel/batch.py``, without its device mesh).
+"""Several videos reconstructed together, their BA solves batched (torch
+twin of ``meatmodeler_tpu/parallel/batch.py``).
 
 Each video's pass 1, board resolution, pass 2 and geometry run per video
 (a batch prepass where the clips allow it, else the per-video path of
-``process``); then every video's BA problem is padded to common
-capacities and solved in one batched LM (``bundle_adjust.solve_ba_batch``,
-the reference's ``vmap(solve_ba)``); then volume and PLY per video.
+``process``) on one CUDA device; then every video's BA problem is padded to
+common capacities and solved in one batched LM (``bundle_adjust.
+solve_ba_batch``, the reference's ``vmap(solve_ba)``), or, given a
+``mesh``, split over its GPUs (``sharded.solve_ba_batch``); then volume and
+PLY per video.
 
 What the reference adds for its TPU link is left out: the compile warm-up
 thread, the pass-2 prefetch, the packed single-buffer fetches, the
@@ -28,6 +30,7 @@ from meatmodeler_tpu_torch.io import native_ops
 from meatmodeler_tpu_torch.io import ply as ply_mod
 from meatmodeler_tpu_torch.io.native_pass1 import HostPass1Scanner, host_pass1_available
 from meatmodeler_tpu_torch.ops import clahe
+from meatmodeler_tpu_torch.parallel import sharded
 from meatmodeler_tpu_torch.pipeline import (
     ProcessResult,
     _auto_scales,
@@ -56,12 +59,14 @@ def process_batch(
     paths: Optional[Sequence[Optional[str]]] = None,
     known_corners: Optional[Sequence[Optional[np.ndarray]]] = None,
     device="cuda",
+    mesh: Optional[sharded.Mesh] = None,
 ) -> List[ProcessResult]:
     """Reconstruct several videos with their BA solves batched.
 
-    The reference's ``process_batch`` with ``mesh=None``: everything runs on
-    ``device`` ("cuda" by default; without CUDA it raises). A multi-GPU
-    mesh is not part of this package yet.
+    Everything runs on ``device`` ("cuda" by default; without CUDA it
+    raises) but, with a ``mesh``, the batched solve: the batch is padded to
+    a multiple of its ``data`` axis with copies of the last problem (their
+    results are dropped) and its lanes are split over the data devices.
 
     Args:
       videos: video sources (paths, or (T, H, W, 3) uint8 arrays; a batch of
@@ -71,6 +76,7 @@ def process_batch(
         ``chessboard.detector="device"`` (the others detect with cv2).
       paths: optional per-video output prefixes (``<path>Cloud.ply``).
       known_corners: optional per-video ground-truth board corners.
+      mesh: a ``sharded.make_mesh()`` mesh for the solve, or None.
 
     Returns:
       One ProcessResult per video, in input order.
@@ -107,7 +113,7 @@ def process_batch(
         # for whatever reads it next.
         with ThreadPoolExecutor(max_workers=min(2, max(n, 1))) as pool:
             pres = list(pool.map(reconstruct, range(n)))
-        return _solve_and_finish_batch(pres, config, metrics_list, paths)
+        return _solve_and_finish_batch(pres, config, metrics_list, paths, mesh)
 
 
 def _batch_prepass(videos, config, known_corners, metrics_list, device):
@@ -187,13 +193,18 @@ def _pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((n - x.shape[0],) + tuple(x.shape[1:]))])
 
 
-def _solve_and_finish_batch(pres, config, metrics_list, paths) -> List[ProcessResult]:
+def _solve_and_finish_batch(pres, config, metrics_list, paths, mesh=None) -> List[ProcessResult]:
     """Pad every video's BA problem to the batch's largest (F, P, N), solve
-    them as one batch, then volume and PLY per video."""
+    them as one batch (over ``mesh``'s data devices when given), then volume
+    and PLY per video."""
     f_max = max(p.ext_refined.shape[0] for p in pres)
     p_max = max(p.points.shape[0] for p in pres)
     o_max = max(p.obs.shape[0] for p in pres)
     device = pres[0].points.device
+    # The data axis must divide the batch: pad with copies of the last
+    # problem.
+    n_solve = len(pres) if mesh is None else -(-len(pres) // mesh.shape["data"]) * mesh.shape["data"]
+    lanes = list(pres) + [pres[-1]] * (n_solve - len(pres))
     problem = bundle_adjust.BAProblem(*(
         torch.stack(fields) for fields in zip(*(
             (
@@ -206,11 +217,14 @@ def _solve_and_finish_batch(pres, config, metrics_list, paths) -> List[ProcessRe
                 torch.arange(o_max, device=device) < p.obs.shape[0],
                 _pad_to(p.obs_weight, o_max),
             )
-            for p in pres
+            for p in lanes
         ))
     ))
     t0 = time.perf_counter()
-    result = bundle_adjust.solve_ba_batch(problem, config=config.solver)
+    if mesh is None:
+        result = bundle_adjust.solve_ba_batch(problem, config=config.solver)
+    else:
+        result = sharded.solve_ba_batch(mesh, problem, config=config.solver)
     rmse_all = result.rmse.cpu().numpy()
     iters_all = result.iterations.cpu().numpy()
     solve_s = time.perf_counter() - t0

@@ -8,8 +8,17 @@ and the Marquardt-damped LM loop with the reference's ftol rule. The loop is
 a Python loop that reads one flag back per iteration. Problems are solved
 at their exact shapes: the reference's bucket padding exists only so XLA
 compiles once, and its padded rows are masked out, so the trajectory is the
-same. One device holds the whole problem; the reference's point-sharded
-multi-device solve is not part of this package.
+same.
+
+The loop runs over point shards (``_solve_shards``): each shard holds the
+cameras and a block of the points with their observations; the
+camera-sized sums (U, b_c, the Schur cross term, the reduced RHS, the cost)
+go through a reduction across the shards where the reference calls
+``_allsum``, so every shard solves the same reduced camera system and walks
+the same LM trajectory. ``solve_ba`` is the one-shard case;
+``parallel.sharded.solve_ba_point_sharded`` spreads the shards over a mesh,
+which ``adjust_points`` does on request (``solver.point_shard_devices``) or
+when the dense Schur strip outgrows ``solver.hbm_strip_budget_bytes``.
 """
 
 from __future__ import annotations
@@ -72,28 +81,29 @@ def _segment_sum(x, idx, n):
     return torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, idx, x)
 
 
-def _solve_normal_equations(problem: BAProblem, lam, jc, jp, r, fix_points: bool = False):
-    """One damped Gauss-Newton step via the Schur complement.
+def _identity(tensors):
+    """The reduction of a single shard."""
+    return tensors
 
-    Returns (delta_cam (F,6), delta_pt (P,3)). ``fix_points`` (the pose-only
-    problem): W = V = 0, the camera system is block-diagonal and
-    delta_p = 0 exactly; there ``lam`` may hold one damping per camera.
-    """
+
+def _damped_u(u, lam):
+    """Marquardt damping of the camera blocks (``lam`` one damping, or one
+    per camera); an unobserved camera gets an identity block, so its rows
+    decouple and its step solves to 0."""
+    eye6 = torch.eye(6, dtype=u.dtype, device=u.device)
+    lam = lam if lam.ndim == 0 else lam[:, None, None]
+    u_d = u + lam * (u * eye6 + 1e-8 * eye6)
+    u_trace = torch.einsum("fii->f", u)
+    return torch.where((u_trace < 1e-12)[:, None, None], eye6, u_d)
+
+
+def _point_side(problem: BAProblem, lam, jc, jp, r):
+    """One shard's point side: the damped, guarded V^-1, b_p and the W
+    blocks it keeps, and its shares of the Schur cross term and of the
+    reduced RHS, which are summed over the shards."""
     f = problem.cam_params.shape[0]
     p = problem.points.shape[0]
     fidx, pidx = problem.frame_idx, problem.point_idx
-    u = _segment_sum(torch.einsum("nri,nrj->nij", jc, jc), fidx, f)
-    b_c = -_segment_sum(torch.einsum("nri,nr->ni", jc, r), fidx, f)
-    eye6 = torch.eye(6, dtype=u.dtype, device=u.device)
-    lam = lam if lam.ndim == 0 else lam[:, None, None]  # one damping, or one per camera
-    u_d = u + lam * (u * eye6 + 1e-8 * eye6)
-    # Unobserved cameras: identity block, so their rows decouple and solve to 0.
-    u_trace = torch.einsum("fii->f", u)
-    u_d = torch.where((u_trace < 1e-12)[:, None, None], eye6, u_d)
-    if fix_points:
-        delta_c = torch.linalg.solve(u_d, b_c[..., None])[..., 0]
-        return delta_c, torch.zeros_like(problem.points)
-
     v = _segment_sum(torch.einsum("nri,nrj->nij", jp, jp), pidx, p)
     w = torch.einsum("nri,nrj->nij", jc, jp)  # (N, 6, 3)
     b_p = -_segment_sum(torch.einsum("nri,nr->ni", jp, r), pidx, p)
@@ -110,23 +120,53 @@ def _solve_normal_equations(problem: BAProblem, lam, jc, jp, r, fix_points: bool
     a_flat = a.reshape(p, f * 6, 3)
     b_strip = torch.einsum("pak,pkl->pal", a_flat, v_inv)
     s_cross = torch.einsum("pak,pbk->ab", b_strip, a_flat)
-    s = torch.block_diag(*u_d.unbind(0)) - s_cross
 
     y = torch.einsum("nij,njk->nik", w, v_inv[pidx])
     red = _segment_sum(torch.einsum("nij,nj->ni", y, b_p[pidx]), fidx, f)
-    rhs = (b_c - red).reshape(f * 6)
-    delta_c = torch.linalg.solve(s, rhs).reshape(f, 6)
+    return w, v_inv, b_p, s_cross, red
 
-    wt_dc = _segment_sum(torch.einsum("nij,ni->nj", w, delta_c[fidx]), pidx, p)
-    delta_p = torch.einsum("pij,pj->pi", v_inv, b_p - wt_dc)
-    return delta_c, delta_p
+
+def _solve_normal_equations(shards, lam, jc, jp, r, fix_points: bool = False, reduce=_identity):
+    """One damped Gauss-Newton step via the Schur complement, over point
+    shards.
+
+    ``shards`` holds one BAProblem per shard (the cameras, this shard's
+    points, its observations with local point indices); ``lam``, ``jc``,
+    ``jp`` and ``r`` hold one entry per shard. The camera-sized sums go
+    through ``reduce`` (one tensor per shard in, their sum per shard out),
+    so every shard solves the same reduced camera system; the point blocks
+    stay with their shard. Returns [(delta_cam (F,6), delta_pt (P,3))] per
+    shard. ``fix_points`` (the pose-only problem): W = V = 0, the camera
+    system is block-diagonal and delta_p = 0 exactly; there ``lam`` may hold
+    one damping per camera.
+    """
+    f = shards[0].cam_params.shape[0]
+    u = reduce([
+        _segment_sum(torch.einsum("nri,nrj->nij", jc_s, jc_s), p.frame_idx, f) for p, jc_s in zip(shards, jc)
+    ])
+    b_c = reduce([
+        -_segment_sum(torch.einsum("nri,nr->ni", jc_s, r_s), p.frame_idx, f) for p, jc_s, r_s in zip(shards, jc, r)
+    ])
+    if fix_points:
+        return [
+            (torch.linalg.solve(_damped_u(u_s, lam_s), b_s[..., None])[..., 0], torch.zeros_like(p.points))
+            for p, u_s, b_s, lam_s in zip(shards, u, b_c, lam)
+        ]
+    sides = [_point_side(*args) for args in zip(shards, lam, jc, jp, r)]
+    s_cross = reduce([side[3] for side in sides])
+    red = reduce([side[4] for side in sides])
+    steps = []
+    for p, (w, v_inv, b_p, _, _), u_s, b_s, s_s, red_s, lam_s in zip(shards, sides, u, b_c, s_cross, red, lam):
+        s = torch.block_diag(*_damped_u(u_s, lam_s).unbind(0)) - s_s
+        delta_c = torch.linalg.solve(s, (b_s - red_s).reshape(f * 6)).reshape(f, 6)
+        # Back-substitute: delta_p = V^-1 (b_p - sum_{n in p} W_n^T delta_c[f_n]).
+        wt_dc = _segment_sum(torch.einsum("nij,ni->nj", w, delta_c[p.frame_idx]), p.point_idx, p.points.shape[0])
+        steps.append((delta_c, torch.einsum("pij,pj->pi", v_inv, b_p - wt_dc)))
+    return steps
 
 
 def _cost(problem, cam, pts):
-    r = _residuals(
-        cam, pts, problem.intrinsics, problem.obs, problem.frame_idx,
-        problem.point_idx, problem.mask, problem.weight,
-    )
+    r = _residuals(cam, pts, *_fields(problem))
     return 0.5 * torch.sum(r * r)
 
 
@@ -175,47 +215,70 @@ def solve_ba(
     warm-starting a grown prefix of the same problem from the previous
     solve's ``final_lambda`` skips the damping walk-down.
     """
-    problem = _canonical(problem)
-    n_valid = torch.clamp(problem.mask.sum(), min=1)
-    cam, pts = problem.cam_params, problem.points
-    cost = _cost(problem, cam, pts)
-    lam = torch.as_tensor(
-        config.init_lambda if init_lambda is None else init_lambda, dtype=cam.dtype, device=cam.device
-    )
+    return _solve_shards([problem], config, fix_points, init_lambda)[0]
+
+
+def _solve_shards(shards, config: SolverConfig, fix_points: bool = False, init_lambda=None, reduce=_identity):
+    """The LM loop of :func:`solve_ba` over point shards (see
+    :func:`_solve_normal_equations`): the observation count, the costs and
+    the rmse's sum of squares go through ``reduce`` too, so every shard
+    takes the same decisions, and the flag of the first shard is the one
+    host read per iteration. Returns one BAResult per shard: cameras, cost,
+    rmse, iterations and damping the same on every shard, points the
+    shard's own."""
+    shards = [_canonical(p) for p in shards]
+    n_valid = [torch.clamp(n, min=1) for n in reduce([p.mask.sum() for p in shards])]
+
+    def costs(cam, pts):
+        return reduce([_cost(p, c, x) for p, c, x in zip(shards, cam, pts)])
+
+    cam = [p.cam_params for p in shards]
+    pts = [p.points for p in shards]
+    cost = costs(cam, pts)
+    lam0 = config.init_lambda if init_lambda is None else init_lambda
+    lam = [torch.as_tensor(lam0, dtype=c.dtype, device=c.device) for c in cam]
     it = 0
     while it < config.max_iters:
-        r = _residuals(
-            cam, pts, problem.intrinsics, problem.obs, problem.frame_idx,
-            problem.point_idx, problem.mask, problem.weight,
-        )
-        jc, jp = _obs_jacobians(
-            cam, pts, problem.intrinsics, problem.obs, problem.frame_idx,
-            problem.point_idx, problem.mask, problem.weight,
-        )
+        r = [_residuals(c, x, *_fields(p)) for p, c, x in zip(shards, cam, pts)]
+        jc, jp = zip(*(_obs_jacobians(c, x, *_fields(p)) for p, c, x in zip(shards, cam, pts)))
 
         def attempt(lam_try):
-            dc, dp = _solve_normal_equations(
-                problem._replace(cam_params=cam, points=pts), lam_try, jc, jp, r,
-                fix_points=fix_points,
+            steps = _solve_normal_equations(
+                [p._replace(cam_params=c, points=x) for p, c, x in zip(shards, cam, pts)],
+                lam_try, jc, jp, r, fix_points=fix_points, reduce=reduce,
             )
-            return cam + dc, pts + dp, _cost(problem, cam + dc, pts + dp)
+            new_cam = [c + dc for c, (dc, _) in zip(cam, steps)]
+            new_pts = [x + dp for x, (_, dp) in zip(pts, steps)]
+            return new_cam, new_pts, costs(new_cam, new_pts)
 
         c1_cam, c1_pts, c1 = attempt(lam)
-        c2_cam, c2_pts, c2 = attempt(lam * config.lambda_up**2)
-        use1, improved, cost, new_lam, done = _lm_decision(config, cost, lam, c1, c2)
-        cam = torch.where(improved, torch.where(use1, c1_cam, c2_cam), cam)
-        pts = torch.where(improved, torch.where(use1, c1_pts, c2_pts), pts)
-        lam = new_lam
+        c2_cam, c2_pts, c2 = attempt([l * config.lambda_up**2 for l in lam])
+        done = []
+        for s in range(len(shards)):
+            use1, improved, cost[s], lam_s, done_s = _lm_decision(config, cost[s], lam[s], c1[s], c2[s])
+            cam[s] = torch.where(improved, torch.where(use1, c1_cam[s], c2_cam[s]), cam[s])
+            pts[s] = torch.where(improved, torch.where(use1, c1_pts[s], c2_pts[s]), pts[s])
+            lam[s] = lam_s
+            done.append(done_s)
         it += 1
-        if bool(done):  # the one host read per iteration
+        if bool(done[0]):  # the one host read per iteration
             break
 
-    r_px = _residuals(
-        cam, pts, problem.intrinsics, problem.obs, problem.frame_idx,
-        problem.point_idx, problem.mask,
+    def sum_sq(p, c, x):  # the UNWEIGHTED pixel residuals, whatever the weights
+        r_px = _residuals(c, x, *_fields(p)[:-1])
+        return torch.sum(r_px * r_px)
+
+    sq = reduce([sum_sq(p, c, x) for p, c, x in zip(shards, cam, pts)])
+    return [
+        BAResult(cam[s], pts[s], cost[s], torch.sqrt(sq[s] / n_valid[s]), it, lam[s]) for s in range(len(shards))
+    ]
+
+
+def _fields(problem: BAProblem):
+    """The fixed arguments of ``_residuals`` and ``_obs_jacobians``."""
+    return (
+        problem.intrinsics, problem.obs, problem.frame_idx, problem.point_idx, problem.mask, problem.weight,
     )
-    rmse = torch.sqrt(torch.sum(r_px * r_px) / n_valid)
-    return BAResult(cam, pts, cost, rmse, it, lam)
 
 
 def _solve_normal_equations_batch(problem: BAProblem, lam, jc, jp, r):
@@ -268,76 +331,105 @@ def _solve_normal_equations_batch(problem: BAProblem, lam, jc, jp, r):
 def solve_ba_batch(problem: BAProblem, config: SolverConfig = SolverConfig()) -> BAResult:
     """(V,) independent problems stacked on a leading axis and padded to
     common (F, P, N) — the reference's ``jax.vmap(solve_ba)`` over padded
-    problems (``parallel/batch.py``). Every field carries the lane axis
-    (``intrinsics`` (V, 3, 3)); padded observations are masked, padded
-    cameras and points unobserved. Each lane keeps its own damping, cost,
-    iteration count and stop, and a finished lane is frozen, as under
+    problems (``parallel/batch.py``), which reads neither
+    ``point_shard_devices`` nor the memory band. Every field carries the
+    lane axis (``intrinsics`` (V, 3, 3)); padded observations are masked,
+    padded cameras and points unobserved. Each lane keeps its own damping,
+    cost, iteration count and stop, and a finished lane is frozen, as under
     ``vmap`` of one ``while_loop``; the loop reads one "any lane active"
     flag per iteration. ``iterations`` and the other result fields are
     per lane."""
-    problem = _canonical(problem)
-    nv, f = problem.cam_params.shape[:2]
-    _check_one_device(problem.points.shape[1], f, config, problem.points.dtype.itemsize)
-    residuals = vmap(_residuals)
-    jacobians = vmap(_obs_jacobians)
-    fixed = (problem.intrinsics, problem.obs, problem.frame_idx, problem.point_idx, problem.mask)
-    weighted = fixed if problem.weight is None else fixed + (problem.weight,)
+    lm = _BatchSolve(problem, config)
+    while config.max_iters > 0 and bool(lm.step()):  # the one host read per iteration
+        pass
+    return lm.result()
 
-    def costs(cam, pts):  # (V,) 0.5 * sum r^2 per lane
-        r = residuals(cam, pts, *weighted)
+
+class _BatchSolve:
+    """The LM of :func:`solve_ba_batch`, one iteration per :meth:`step`, so
+    that ``parallel.sharded.solve_ba_batch`` can step one per device in
+    lockstep."""
+
+    def __init__(self, problem: BAProblem, config: SolverConfig):
+        self.problem = problem = _canonical(problem)
+        self.config = config
+        nv = problem.cam_params.shape[0]
+        self.fixed = (problem.intrinsics, problem.obs, problem.frame_idx, problem.point_idx, problem.mask)
+        self.weighted = self.fixed if problem.weight is None else self.fixed + (problem.weight,)
+        self.cam, self.pts = problem.cam_params, problem.points
+        self.cost = self._costs(self.cam, self.pts)
+        device = self.cam.device
+        self.lam = torch.full((nv,), config.init_lambda, dtype=self.cam.dtype, device=device)
+        self.it = torch.zeros(nv, dtype=torch.int64, device=device)
+        self.active = torch.full((nv,), config.max_iters > 0, dtype=torch.bool, device=device)
+
+    def _costs(self, cam, pts):  # (V,) 0.5 * sum r^2 per lane
+        r = vmap(_residuals)(cam, pts, *self.weighted)
         return 0.5 * torch.sum(r * r, dim=(1, 2))
 
-    cam, pts = problem.cam_params, problem.points
-    cost = costs(cam, pts)
-    lam = torch.full((nv,), config.init_lambda, dtype=cam.dtype, device=cam.device)
-    it = torch.zeros(nv, dtype=torch.int64, device=cam.device)
-    active = torch.full((nv,), config.max_iters > 0, dtype=torch.bool, device=cam.device)
-    while config.max_iters > 0:
-        r = residuals(cam, pts, *weighted)
-        jc, jp = jacobians(cam, pts, *weighted)
+    def step(self) -> torch.Tensor:
+        """One LM iteration of every active lane; returns the "any lane
+        still active" flag, on the device (not read)."""
+        config, cam, pts, lam, active = self.config, self.cam, self.pts, self.lam, self.active
+        r = vmap(_residuals)(cam, pts, *self.weighted)
+        jc, jp = vmap(_obs_jacobians)(cam, pts, *self.weighted)
 
         def attempt(lam_try):
-            dc, dp = _solve_normal_equations_batch(problem._replace(cam_params=cam, points=pts), lam_try, jc, jp, r)
-            return cam + dc, pts + dp, costs(cam + dc, pts + dp)
+            dc, dp = _solve_normal_equations_batch(self.problem._replace(cam_params=cam, points=pts), lam_try, jc, jp, r)
+            return cam + dc, pts + dp, self._costs(cam + dc, pts + dp)
 
         c1_cam, c1_pts, c1 = attempt(lam)
         c2_cam, c2_pts, c2 = attempt(lam * config.lambda_up**2)
-        use1, improved, new_cost, new_lam, done = _lm_decision(config, cost, lam, c1, c2)
+        use1, improved, new_cost, new_lam, done = _lm_decision(config, self.cost, lam, c1, c2)
         # Lanes that have stopped keep their state.
         step = (active & improved)[:, None, None]
-        cam = torch.where(step, torch.where(use1[:, None, None], c1_cam, c2_cam), cam)
-        pts = torch.where(step, torch.where(use1[:, None, None], c1_pts, c2_pts), pts)
-        cost = torch.where(active, new_cost, cost)
-        lam = torch.where(active, new_lam, lam)
-        it = it + active.to(torch.int64)
-        active = active & ~done & (it < config.max_iters)
-        if not bool(active.any()):  # the one host read per iteration
-            break
+        self.cam = torch.where(step, torch.where(use1[:, None, None], c1_cam, c2_cam), cam)
+        self.pts = torch.where(step, torch.where(use1[:, None, None], c1_pts, c2_pts), pts)
+        self.cost = torch.where(active, new_cost, self.cost)
+        self.lam = torch.where(active, new_lam, lam)
+        self.it = self.it + active.to(torch.int64)
+        self.active = active & ~done & (self.it < config.max_iters)
+        return self.active.any()
 
-    r_px = residuals(cam, pts, *fixed)
-    rmse = torch.sqrt(torch.sum(r_px * r_px, dim=(1, 2)) / torch.clamp(problem.mask.sum(1), min=1))
-    return BAResult(cam, pts, cost, rmse, it, lam)
+    def result(self) -> BAResult:
+        r_px = vmap(_residuals)(self.cam, self.pts, *self.fixed)
+        n_valid = torch.clamp(self.problem.mask.sum(1), min=1)
+        rmse = torch.sqrt(torch.sum(r_px * r_px, dim=(1, 2)) / n_valid)
+        return BAResult(self.cam, self.pts, self.cost, rmse, self.it, self.lam)
 
 
-def _check_one_device(n_p: int, n_f: int, config: SolverConfig, itemsize: int) -> None:
-    """The reference shards points across devices on request, or when the
-    dense Schur strip outgrows ``hbm_strip_budget_bytes``; this package
-    solves on one device and refuses, with the numbers, what would need more."""
-    if config.point_shard_devices > 1:
-        raise ValueError(
-            f"solver.point_shard_devices={config.point_shard_devices}: the "
-            "multi-device point-sharded solve is not available in this package"
-        )
+def _ceil_to(n: int, q: int) -> int:
+    return ((n + q - 1) // q) * q if q > 1 else n
+
+
+def _point_shards(n_p: int, n_f: int, config: SolverConfig, itemsize: int, n_devices: int) -> int:
+    """The reference's memory band (``adjust_points``), on its bucket-padded
+    sizes: the dense Schur strip (P, F, 6, 3) and its V^-1 product peak at
+    ~2 * P * F * 72 bytes of float32. Returns the number of point shards —
+    ``point_shard_devices``, or as many as keep each shard's strip inside
+    ``hbm_strip_budget_bytes`` — or raises, with the numbers, when that is
+    more than ``n_devices``. Only the decision follows the padded sizes:
+    the solve runs at the exact ones."""
+    pb = _ceil_to(n_p, config.bucket[1])
+    fb = _ceil_to(n_f, config.bucket[0])
+    shards = max(config.point_shard_devices, 1)
     if config.hbm_strip_budget_bytes > 0:
-        strip_bytes = 2 * n_p * n_f * 18 * itemsize
-        if strip_bytes > config.hbm_strip_budget_bytes:
-            raise ValueError(
-                f"BA problem too large for one device: the dense Schur strip "
-                f"over {n_p} points x {n_f} cameras is ~{strip_bytes / 2**20:.1f} "
-                f"MiB, above hbm_strip_budget_bytes="
-                f"{config.hbm_strip_budget_bytes / 2**20:.1f} MiB; raise the "
-                "budget or reduce the problem"
-            )
+        strip_bytes = 2 * pb * fb * 18 * itemsize
+        need = -(-strip_bytes // config.hbm_strip_budget_bytes)
+        if need > shards:
+            if need > n_devices:
+                raise ValueError(
+                    f"BA problem too large for the configured memory band: "
+                    f"the dense Schur strip over {pb} points x {fb} cameras "
+                    f"is ~{strip_bytes / 2**20:.1f} MiB, needing {need} "
+                    f"point shards at hbm_strip_budget_bytes="
+                    f"{config.hbm_strip_budget_bytes / 2**20:.1f} MiB/device, "
+                    f"but only {n_devices} devices are addressable. Run on a "
+                    f"larger slice, raise solver.hbm_strip_budget_bytes, or "
+                    f"reduce the problem (fewer tracks/keyframes)."
+                )
+            shards = int(need)
+    return shards
 
 
 def adjust_points(
@@ -351,18 +443,30 @@ def adjust_points(
     weights: Optional[torch.Tensor] = None,
     config: SolverConfig = SolverConfig(),
     init_lambda=None,
+    devices=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, BAResult]:
     """Full BA over cameras and points. Returns refined (P, 3) points,
     (F, 4, 4) homogeneous extrinsics and the solver stats.
-    ``init_lambda``: optional damping warm start (see :func:`solve_ba`)."""
+    ``init_lambda``: optional damping warm start (see :func:`solve_ba`).
+
+    The points are sharded over several devices (``parallel.sharded.
+    solve_ba_point_sharded``) when ``config.point_shard_devices`` asks for
+    it or the memory band needs it (``_point_shards``). ``devices``: the
+    devices a sharded solve may use; by default every visible GPU for a
+    problem on the card, else the problem's own device. ``["cpu"] * n``
+    offers n virtual shards on the CPU."""
     device = extrinsics.device
     points_3d = points_3d.reshape(-1, 3)
     points_2d = points_2d.reshape(-1, 2)
     frame_indices = torch.as_tensor(frame_indices, device=device).long()
     point_indices = torch.as_tensor(point_indices, device=device).long()
-    _check_one_device(
+    if devices is None:
+        devices = (
+            [torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda" else [device]
+        )
+    shards = _point_shards(
         points_3d.shape[0], extrinsics.shape[0], config,
-        torch.promote_types(points_3d.dtype, torch.float32).itemsize,
+        torch.promote_types(points_3d.dtype, torch.float32).itemsize, len(devices),
     )
     if mask is None:
         mask = torch.ones(points_2d.shape[0], dtype=torch.bool, device=device)
@@ -376,7 +480,14 @@ def adjust_points(
         mask=mask,
         weight=weights,
     )
-    result = solve_ba(problem, config=config, init_lambda=init_lambda)
+    if shards > 1:
+        # Imported here: parallel.sharded imports this module.
+        from meatmodeler_tpu_torch.parallel import sharded
+
+        mesh = sharded.make_mesh(data=min(shards, len(devices)), model=1, devices=devices)
+        result = sharded.solve_ba_point_sharded(mesh, problem, config=config, init_lambda=init_lambda)
+    else:
+        result = solve_ba(problem, config=config, init_lambda=init_lambda)
     new_ext = projection.extrinsics_from_params(result.cam_params, homogeneous=True)
     return result.points, new_ext, result
 
@@ -475,7 +586,7 @@ def pose_only_refine(
         )
 
         def attempt(lam_try):
-            dc, _ = _solve_normal_equations(problem._replace(cam_params=cam), lam_try, jc, jp, r, fix_points=True)
+            [(dc, _)] = _solve_normal_equations([problem._replace(cam_params=cam)], [lam_try], [jc], [jp], [r], fix_points=True)
             return cam + dc, costs(cam + dc)
 
         c1_cam, c1 = attempt(lam)

@@ -1,7 +1,7 @@
 """Time and profile the port's headline runs on one GPU.
 
     python3 -m meatmodeler_tpu_torch.tools.profile_headline [--warm-runs 10] [--out FILE]
-        [--paths known,detector,markerless,batch,pipelined,odometry]
+        [--paths known,detector,markerless,batch,pipelined,odometry,sharded]
 
 It renders the headline clip on the card (300 frames, 1920x1080, seed 0,
 with its ground-truth board corners) and profiles two paths through
@@ -48,6 +48,11 @@ The multi-video entry points and the odometry run the same four ways
     calls of each step (``ODOMETRY_STAGES``); its profiled run, and a count
     of its host syncs, take the first 20 steps.
 
+  sharded: the known path's BA problem (recorded from one run) through
+    ``parallel.sharded.solve_ba_point_sharded`` on four virtual shards of
+    ``cuda:0`` (and over every GPU where there are several) against the
+    unsharded ``solve_ba``, checked, then timed in turns (``profile_sharded``).
+
 One summary line per phase goes to stdout; everything goes as JSON to
 ``--out`` (default ``build/profile_headline.json``), one entry per path.
 """
@@ -55,6 +60,7 @@ One summary line per phase goes to stdout; everything goes as JSON to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -74,14 +80,16 @@ from meatmodeler_tpu_torch.config import (
     MatcherConfig,
     OrbConfig,
     PipelineConfig,
+    SolverConfig,
     TrackConfig,
     VolumeConfig,
 )
 from meatmodeler_tpu_torch import pipeline
-from meatmodeler_tpu_torch.geometry import ransac, so3, triangulation
+from meatmodeler_tpu_torch.geometry import projection, ransac, so3, triangulation
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe, clahe_cuda, features, klt
+from meatmodeler_tpu_torch.parallel import sharded
 from meatmodeler_tpu_torch.parallel.batch import process_batch
 from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
 from meatmodeler_tpu_torch.pipeline import process
@@ -328,6 +336,144 @@ def synced_calls(run, targets):
     return out, sums
 
 
+# The JAX package's point-sharded test problem (tests/test_sharding.py:93-108).
+SHARDED_PROBLEM = dict(seed=42, n_frames=12, n_points=10240, n_obs=40960)
+
+
+def synthetic_ba_problem(device, seed=42, n_frames=12, n_points=10240, n_obs=40960):
+    """The JAX package's sharding-test BA problem (``make_ba_problem`` of
+    ``tests/test_sharding.py``): its numpy draws, projected with this
+    package, float32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    k = np.array([[500.0, 0, 160], [0, 500.0, 120], [0, 0, 1]], np.float32)
+    pts = rng.normal(size=(n_points, 3)).astype(np.float32) * 2
+    cams = np.hstack([rng.normal(size=(n_frames, 3)) * 0.1, rng.normal(size=(n_frames, 3))]).astype(np.float32)
+    cams[:, 5] += 10
+    fidx = rng.integers(0, n_frames, n_obs)
+    pidx = rng.integers(0, n_points, n_obs)
+    obs = projection.project_points(torch.from_numpy(pts[pidx]), torch.from_numpy(cams[fidx]), torch.from_numpy(k))
+    obs = obs.numpy() + rng.normal(scale=0.3, size=obs.shape).astype(np.float32)
+    cams0 = cams + rng.normal(scale=0.01, size=cams.shape).astype(np.float32)
+    pts0 = pts + rng.normal(scale=0.02, size=pts.shape).astype(np.float32)
+    fields = (cams0, pts0, k, obs, fidx, pidx, np.ones(n_obs, bool))
+    return bundle_adjust.BAProblem(*(torch.from_numpy(np.asarray(a)).to(device) for a in fields))
+
+
+def headline_ba_problem(frames, corners, config):
+    """The BA problem that ``process`` hands the global solve on the
+    headline clip (the last ``solve_ba`` call of one known-corner run)."""
+    with recording(bundle_adjust, "solve_ba") as calls:
+        process(frames, config=config, known_corners=corners, device="cuda")
+    return [args[0] for args, kwargs in calls if not kwargs.get("fix_points")][-1]
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Within the block, every call of ``module.name`` runs as before and
+    appends its (args, kwargs) to the list the block receives."""
+    calls, real = [], getattr(module, name)
+
+    def call(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def with_dtype(problem, dtype):
+    """A BA ``problem`` with its float fields in ``dtype``."""
+    return problem._replace(**{
+        k: getattr(problem, k).to(dtype) for k in ("cam_params", "points", "intrinsics", "obs", "weight")
+        if getattr(problem, k) is not None
+    })
+
+
+def _compare(a, b) -> dict:
+    """Iterations, rmse and the largest parameter differences of two solves."""
+    return {
+        "iterations": [a.iterations, b.iterations], "rmse": [float(a.rmse), float(b.rmse)],
+        "cam_max_abs_diff": float((a.cam_params.double() - b.cam_params.double()).abs().max()),
+        "points_max_abs_diff": float((a.points.double() - b.points.double()).abs().max()),
+    }
+
+
+def point_sharded_check(problem, devices, config=None) -> dict:
+    """``solve_ba_point_sharded`` over ``devices`` against the unsharded
+    ``solve_ba`` on ``problem``. Raises on disagreement.
+
+    In float64 the sharded solve is held to the JAX package's bounds
+    (``tests/test_sharding.py``: rmse rtol 1e-4, equal iterations, cameras
+    atol 1e-4, points atol 1e-3). In the problem's own float32, which the
+    path runs, a problem's cameras and points are fixed only as far as its
+    conditioning allows any change of summation order to move them: there
+    the check is the rmse (rtol 1e-4), and the parameter differences are
+    reported beside those between the unsharded solve and itself with the
+    observations permuted. Each float32 solve is timed once (host clock to
+    a device sync)."""
+    config = config or SolverConfig()
+    mesh = sharded.make_mesh(data=len(devices), devices=devices)
+    wall_1, one = _timed(lambda: bundle_adjust.solve_ba(problem, config=config))
+    wall_sh, sh = _timed(lambda: sharded.solve_ba_point_sharded(mesh, problem, config=config))
+    perm = torch.randperm(problem.obs.shape[0], generator=torch.Generator().manual_seed(0)).to(problem.obs.device)
+    permuted = bundle_adjust.solve_ba(problem._replace(**{
+        k: getattr(problem, k)[perm] for k in ("obs", "frame_idx", "point_idx", "mask", "weight")
+        if getattr(problem, k) is not None
+    }), config=config)
+    p64 = with_dtype(problem, torch.float64)
+    out = {
+        "devices": [str(d) for d in devices], "points": problem.points.shape[0], "frames": problem.cam_params.shape[0],
+        "observations": problem.obs.shape[0], "unsharded_s": wall_1, "sharded_s": wall_sh,
+        "float32": _compare(one, sh), "float32_unsharded_permuted": _compare(one, permuted),
+        "float64": _compare(bundle_adjust.solve_ba(p64, config=config),
+                            sharded.solve_ba_point_sharded(mesh, p64, config=config)),
+    }
+    f32, f64 = out["float32"], out["float64"]
+    ok = (
+        abs(f32["rmse"][1] - f32["rmse"][0]) <= 1e-4 * abs(f32["rmse"][0])
+        and f64["iterations"][0] == f64["iterations"][1]
+        and abs(f64["rmse"][1] - f64["rmse"][0]) <= 1e-4 * abs(f64["rmse"][0])
+        and f64["cam_max_abs_diff"] <= 1e-4
+        and f64["points_max_abs_diff"] <= 1e-3
+    )
+    if not ok:
+        raise AssertionError(f"point-sharded solve disagrees with the unsharded one: {json.dumps(out)}")
+    return out
+
+
+def profile_sharded(problem, warm_runs) -> dict:
+    """The point-sharded solve of ``problem`` against the unsharded
+    ``solve_ba``, on four virtual shards of ``cuda:0`` and, with several
+    GPUs, over all of them: one checked run each (``point_sharded_check``),
+    then ``warm_runs`` timed runs of each, in turns; the all-reduces and
+    flag reads (one per LM iteration) of one sharded solve."""
+    n_gpus = torch.cuda.device_count()
+    meshes = {"virtual4": [torch.device("cuda", 0)] * 4}
+    if n_gpus > 1:
+        meshes[f"gpus{n_gpus}"] = [torch.device("cuda", i) for i in range(n_gpus)]
+    rep = {"gpus": n_gpus}
+    for label, devices in meshes.items():
+        check = point_sharded_check(problem, devices)
+        mesh = sharded.make_mesh(data=len(devices), devices=devices)
+        one, sh = [], []
+        for _ in range(warm_runs):
+            one.append(_timed(lambda: bundle_adjust.solve_ba(problem))[0])
+            sh.append(_timed(lambda: sharded.solve_ba_point_sharded(mesh, problem))[0])
+        with recording(sharded, "all_reduce_sum") as reduces:
+            res = sharded.solve_ba_point_sharded(mesh, problem)
+        rep[label] = {
+            "check": check, "unsharded": _quartiles(one), "sharded": _quartiles(sh),
+            "all_reduces": len(reduces), "flag_reads": res.iterations,
+        }
+        print(f"[sharded] {label}: {check['points']} points, {check['frames']} frames; unsharded median "
+              f"{rep[label]['unsharded']['median_s']} s, point-sharded median {rep[label]['sharded']['median_s']} s "
+              f"(x{warm_runs} each); {len(reduces)} all-reduces and {res.iterations} flag reads per solve")
+    return rep
+
+
 def detector_config(config):
     """``config`` on the board-finding default path: the JAX package's
     default pass 1 ("device") and pass-2 enhance ("bgr_lab"), and the
@@ -517,7 +663,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--warm-runs", type=int, default=10)
     ap.add_argument("--out", default=str(REPO / "build" / "profile_headline.json"))
-    ap.add_argument("--paths", default="known,detector,markerless,batch,pipelined,odometry",
+    ap.add_argument("--paths", default="known,detector,markerless,batch,pipelined,odometry,sharded",
                     help="comma-separated subset to run")
     args = ap.parse_args(argv)
     paths = args.paths.split(",")
@@ -528,7 +674,7 @@ def main(argv=None) -> int:
     report = {"device": torch.cuda.get_device_name(0), "frames": HEADLINE_FRAMES}
     report["library_prebuilt"] = clahe_cuda.LIBRARY.exists()
 
-    if "known" in paths or "detector" in paths:
+    if "known" in paths or "detector" in paths or "sharded" in paths:
         t0 = time.perf_counter()
         scene, frames, corners = headline_clip("cuda")
         torch.cuda.synchronize()
@@ -538,6 +684,8 @@ def main(argv=None) -> int:
             profile_path("known", scene, frames, corners, config, args.warm_runs, report)
         if "detector" in paths:
             profile_path("detector", scene, frames, None, detector_config(config), args.warm_runs, report)
+        if "sharded" in paths:
+            report["sharded"] = profile_sharded(headline_ba_problem(frames, corners, config), args.warm_runs)
         del frames
     if "markerless" in paths or "odometry" in paths:
         scene, frames, poses = markerless_clip("cuda")

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -21,6 +22,9 @@ __all__ = [
     "update_tracks_scan",
     "finalize_tracks",
     "triangulation_endpoints",
+    "to_ba_arrays",
+    "Track",
+    "views_from_store",
 ]
 
 
@@ -164,3 +168,77 @@ def triangulation_endpoints(store: TrackStore):
     valid = store.used & (store.obs_mask.sum(1) >= 2)
     rows = torch.arange(store.capacity, device=obs.device)
     return first_kf, last_kf, store.coords[rows, first_kf], store.coords[rows, last_kf], valid
+
+
+def to_ba_arrays(store: TrackStore):
+    """Flatten the store into the BA observation lists on the host (numpy),
+    the role of the reference's ``managePoints``: (points (P, 3), obs (N, 2),
+    frame_idx (N,), point_idx (N,), track_ids (P,), obs_octave (N,)) over the
+    tracks with >= 2 observations, track-major."""
+    coords, obs_mask, used, pts, octaves = (
+        t.cpu().numpy() for t in (store.coords, store.obs_mask, store.used, store.points, store.octaves)
+    )
+    keep = used & (obs_mask.sum(1) >= 2)
+    track_ids = np.nonzero(keep)[0]
+    t_idx, f_idx = np.nonzero(obs_mask[track_ids])
+    return (
+        pts[track_ids],
+        coords[track_ids][t_idx, f_idx],
+        f_idx.astype(np.int32),
+        t_idx.astype(np.int32),
+        track_ids,
+        octaves[track_ids][t_idx, f_idx].astype(np.int32),
+    )
+
+
+class Track:
+    """Compatibility view with the reference's ``track.py`` API."""
+
+    def __init__(self, prev_frame_id, feature, frame_id, correspondent):
+        self.coordinates = {prev_frame_id: feature, frame_id: correspondent}
+        self.point = None
+        self.updated = False
+
+    def update(self, frame_id, correspondent):
+        self.coordinates[frame_id] = correspondent
+        self.updated = True
+
+    def reset(self):
+        self.updated = False
+
+    def wasUpdated(self):
+        return self.updated
+
+    def getCoordinate(self, frame_id):
+        return self.coordinates.get(frame_id)
+
+    def getTriangulationData(self):
+        frames = list(self.coordinates.keys())
+        return frames[0], frames[-1], self.coordinates.get(frames[0]), self.coordinates.get(frames[-1])
+
+    def getCoordinates(self):
+        return self.coordinates
+
+    def setPoint(self, point):
+        self.point = point
+
+    def getPoint(self):
+        return self.point
+
+
+def views_from_store(store: TrackStore):
+    """Reference-style :class:`Track` objects from the SoA store, one per
+    used track with >= 2 observations."""
+    coords, obs_mask, used, pts = (t.cpu().numpy() for t in (store.coords, store.obs_mask, store.used, store.points))
+    out = []
+    for t in np.nonzero(used)[0]:
+        kf_ids = np.nonzero(obs_mask[t])[0]
+        if len(kf_ids) < 2:
+            continue
+        tr = Track(int(kf_ids[0]), tuple(coords[t, kf_ids[0]]), int(kf_ids[1]), tuple(coords[t, kf_ids[1]]))
+        for k in kf_ids[2:]:
+            tr.update(int(k), tuple(coords[t, k]))
+            tr.reset()
+        tr.setPoint(pts[t : t + 1])
+        out.append(tr)
+    return out

@@ -14,8 +14,12 @@ import os
 import threading
 
 import torch
+from torch.overrides import TorchFunctionMode
 
-__all__ = ["NumericsError", "checks_enabled", "check_finite", "load_cuda_linalg", "nanmedian", "one_thread_at_a_time"]
+__all__ = [
+    "NumericsError", "checks_enabled", "check_finite", "checked", "load_cuda_linalg", "nanmedian",
+    "one_thread_at_a_time",
+]
 
 # torch.func's forward-mode AD numbers its dual levels process-wide and
 # needs them closed in the order they were opened, so two host threads
@@ -82,3 +86,35 @@ def check_finite(stage: str, **arrays) -> None:
                 f"stage '{stage}': array '{name}' has {n_bad}/{x.numel()} "
                 f"non-finite values (first at indices {idx})"
             )
+
+
+class _FiniteOutputs(TorchFunctionMode):
+    """Raises :class:`NumericsError` at the first torch call whose floating
+    output holds a NaN or an Inf, naming the call."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        stack = [out]
+        while stack:
+            x = stack.pop()
+            if isinstance(x, (tuple, list)):
+                stack.extend(x)
+            elif isinstance(x, torch.Tensor) and x.is_floating_point() and not bool(torch.isfinite(x).all()):
+                name = getattr(func, "__qualname__", None) or getattr(func, "__name__", repr(func))
+                raise NumericsError(f"non-finite output of {name} (shape {tuple(x.shape)})")
+        return out
+
+
+def checked(fn):
+    """Wrap ``fn`` so that it raises :class:`NumericsError` at the first
+    torch operation whose floating output is non-finite, naming that
+    operation: the role of the reference's checkify float checks. Every
+    operation's output is read back to test it, so this is a debug tool,
+    not a production path."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with _FiniteOutputs():
+            return fn(*args, **kwargs)
+
+    return run

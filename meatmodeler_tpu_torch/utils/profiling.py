@@ -20,13 +20,28 @@ import torch
 
 logger = logging.getLogger("meatmodeler")
 
-__all__ = ["Metrics", "logger", "profile_run"]
+__all__ = ["Metrics", "trace", "logger", "device_barrier", "profile_run"]
 
 
 def _sync_stages() -> bool:
     # Read at each stage exit, so a process can time some runs synced and
     # others not.
     return os.environ.get("MEATMODELER_SYNC_STAGES", "") not in ("", "0")
+
+
+def device_barrier() -> None:
+    """Block until the work queued so far on the current CUDA device is done
+    (nothing to wait for where CUDA was never used)."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def trace(name: str):
+    """A ``torch.profiler`` range named ``name`` around the enclosed work
+    (a named slice in a ``profile_run`` trace; near-free otherwise)."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 class Metrics:
@@ -40,9 +55,10 @@ class Metrics:
     @contextlib.contextmanager
     def stage(self, name: str):
         t0 = time.perf_counter()
-        yield
-        if _sync_stages() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
+        with trace(name):
+            yield
+            if _sync_stages():
+                device_barrier()
         dt = time.perf_counter() - t0
         self.timings[name] = self.timings.get(name, 0.0) + dt
         logger.info("%s: %.3fs", name, dt)

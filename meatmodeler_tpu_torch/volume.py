@@ -22,6 +22,7 @@ __all__ = [
     "convex_hull_volume",
     "maxpool_sep",
     "erode_sep",
+    "carved_volume",
     "hull_and_carved_volume",
 ]
 
@@ -187,6 +188,29 @@ def _points_in_silhouettes(points, projections, proj_mask, sils, grid_step, vote
     votes = _silhouette_votes(points, projections, proj_mask, sils, grid_step)
     n_active = torch.clamp(proj_mask.sum(), min=1)
     return votes >= torch.ceil(vote_frac * n_active)
+
+
+def carved_volume(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    projections: torch.Tensor,
+    proj_mask: torch.Tensor,
+    image_size: Tuple[int, int],
+    resolution: int = 64,
+    dilation: int = 9,
+    grid_step: int = 4,
+    close_frac: float = 0.029,
+    vote_frac: float = 0.8,
+) -> torch.Tensor:
+    """Voxel carving against the splatted and dilated point silhouettes:
+    (P, 3) item points with their (P,) validity, (F, 3, 4) keyframe
+    projection matrices with the (F,) taking part, ``image_size`` (W, H).
+    Returns the carved volume (a 0-d tensor)."""
+    inside, _, voxel_vol, _ = _carve_occupancy(
+        points, mask, projections, proj_mask, image_size, resolution,
+        dilation, grid_step, close_frac, vote_frac,
+    )
+    return inside.sum() * voxel_vol
 
 
 def hull_and_carved_volume(

@@ -1,7 +1,8 @@
 """The multi-video entry points of the port against the JAX package:
 ``solvers.bundle_adjust.solve_ba_batch`` against ``jax.vmap(solve_ba)``,
 ``parallel.batch.process_batch`` against the JAX ``process_batch`` with
-``mesh=None``. (``process_batch_pipelined``: ``test_torch_pipelined.py``.)
+``mesh=None`` and with a two-device mesh. (``process_batch_pipelined``:
+``test_torch_pipelined.py``.)
 
 Tolerances: the batched solve takes the same number of LM iterations per
 lane as the JAX one, with cameras and points within 1e-4 relative (of each
@@ -25,10 +26,12 @@ import torch
 
 from meatmodeler_tpu.config import DEFAULT_CONFIG, KeyframeConfig, MatcherConfig, OrbConfig, TrackConfig, VolumeConfig
 from meatmodeler_tpu.io.synthetic import TurntableScene, render_sequence
+from meatmodeler_tpu.parallel import sharded as jsharded
 from meatmodeler_tpu.parallel.batch import process_batch as jax_process_batch
 from meatmodeler_tpu.solvers import bundle_adjust as jba
 from meatmodeler_tpu_torch.geometry import projection as tproj
 from meatmodeler_tpu_torch.parallel import pipelined as tpipelined
+from meatmodeler_tpu_torch.parallel import sharded as tsharded
 from meatmodeler_tpu_torch.parallel.batch import process_batch
 from meatmodeler_tpu_torch.pipeline import process
 from meatmodeler_tpu_torch.solvers import bundle_adjust as tba
@@ -139,14 +142,23 @@ def clips():
     return _clips(TINY_SCENE, 10)
 
 
+# The config of the batches through both packages (one JAX compile).
+BATCH_CONFIG = dataclasses.replace(JAX_CONFIG, chessboard=dataclasses.replace(JAX_CONFIG.chessboard, detector="device"))
+
+
 @pytest.fixture(scope="module")
-def batch_runs(tmp_path_factory):
+def clips16():
+    return _clips(SCENE, 16)
+
+
+@pytest.fixture(scope="module")
+def batch_runs(tmp_path_factory, clips16):
     """One batch through both packages: the first clip with its known
     corners, the second alone, its boards found by the device detector."""
-    frames, corners = _clips(SCENE, 16)
+    frames, corners = clips16
     known = [corners[0], None]
     out = tmp_path_factory.mktemp("batch")
-    cfg = dataclasses.replace(JAX_CONFIG, chessboard=dataclasses.replace(JAX_CONFIG.chessboard, detector="device"))
+    cfg = BATCH_CONFIG
     jres = jax_process_batch(frames, config=cfg, mesh=None, known_corners=known)
     tres = process_batch(
         frames, config=from_fields(cfg), known_corners=known, device="cpu", paths=[str(out / "a"), str(out / "b")]
@@ -186,6 +198,27 @@ def test_process_batch_results_and_ply(batch_runs):
             "kf_scale", "keyframe_indices",
         }
         assert set(r.volume_confidence) >= {"low_confidence", "view_arc_deg", "elongation", "reason", "n_item_points"}
+
+
+def test_process_batch_with_mesh_matches_jax(batch_runs, clips16):
+    """Three clips, known corners, over a two-device mesh (``sharded.
+    make_mesh(data=2)``; the port's on virtual CPU shards): the batch pads
+    to four lanes with a copy of the last problem in both packages, and per
+    clip the keyframes and point counts are JAX's, rmse within 1e-3 px,
+    hull volume within 0.5% (the bounds above)."""
+    frames, corners = clips16
+    frames, corners = frames + frames[:1], corners + corners[:1]
+    jres = jax_process_batch(frames, config=BATCH_CONFIG, mesh=jsharded.make_mesh(data=2), known_corners=corners)
+    tres = process_batch(
+        frames, config=from_fields(BATCH_CONFIG), known_corners=corners, device="cpu",
+        mesh=tsharded.make_mesh(data=2, devices=["cpu"] * 2),
+    )
+    assert len(tres) == 3
+    for j, t in zip(jres, tres):
+        assert t.metrics["counters"]["keyframe_indices"] == j.metrics["counters"]["keyframe_indices"]
+        assert len(t.points) == len(j.points) > 100
+        np.testing.assert_allclose(t.reprojection_rmse, j.reprojection_rmse, atol=1e-3)
+        np.testing.assert_allclose(t.volume, j.volume, rtol=5e-3)
 
 
 def test_nonuniform_batch_skips_the_prepass(clips):

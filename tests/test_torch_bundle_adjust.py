@@ -72,11 +72,32 @@ def test_adjust_pose_matches_jax():
 
 
 def test_point_sharding_is_refused():
+    """The memory band refuses, with the JAX package's text, a problem whose
+    Schur strip needs more point shards than there are devices: here one
+    (the problem's CPU), and 2 shards of the bucket-padded 256 x 4 strip
+    (147 456 B) against a 100 000 B budget."""
     K, _, _, cams0, pts0, obs, fidx, pidx = make_problem(n_frames=4, n_points=20, seed=6)
     ext0 = f32(np.asarray(jproj.extrinsics_from_params(jnp.asarray(f32(cams0)))))
-    with pytest.raises(ValueError, match="point_shard_devices"):
-        tba.adjust_points(tt(ext0), tt(K), tt(pts0), tt(obs), fidx, pidx,
-                          config=from_fields(JaxSolverConfig(point_shard_devices=2)))
-    with pytest.raises(ValueError, match="too large for one device"):
-        tba.adjust_points(tt(ext0), tt(K), tt(pts0), tt(obs), fidx, pidx,
-                          config=from_fields(JaxSolverConfig(hbm_strip_budget_bytes=1024)))
+    cfg = from_fields(JaxSolverConfig(hbm_strip_budget_bytes=100_000))
+    with pytest.raises(ValueError, match="memory band") as err:
+        tba.adjust_points(tt(ext0), tt(K), tt(pts0), tt(obs), fidx, pidx, config=cfg)
+    assert "needing 2 point shards" in str(err.value) and "only 1 devices" in str(err.value)
+
+
+@pytest.mark.parametrize(
+    "fields", [{"point_shard_devices": 2}, {"point_shard_devices": 4}, {"hbm_strip_budget_bytes": 60_000}],
+    ids=["opt-in-2", "opt-in-4", "band-3"],
+)
+def test_point_sharding_matches_jax(fields):
+    """Opted in, or banded (the 147 456 B strip needs 3 shards at 60 000 B),
+    the port shards the points over virtual CPU shards and lands where the
+    JAX package's one-device solve does: rmse within 1e-4 relative, points
+    within 5e-3 (test_sharding.py's bounds: both stop at ftol 1e-4)."""
+    K, _, _, cams0, pts0, obs, fidx, pidx = make_problem(n_frames=4, n_points=20, seed=6)
+    ext0 = f32(np.asarray(jproj.extrinsics_from_params(jnp.asarray(f32(cams0)))))
+    jp, _, jr = jba.adjust_points(jnp.asarray(ext0), jnp.asarray(f32(K)), jnp.asarray(f32(pts0)), jnp.asarray(f32(obs)), fidx, pidx)
+    tp, _, tr = tba.adjust_points(
+        tt(ext0), tt(K), tt(pts0), tt(obs), fidx, pidx, config=from_fields(JaxSolverConfig(**fields)), devices=["cpu"] * 4
+    )
+    np.testing.assert_allclose(float(tr.rmse), float(jr.rmse), rtol=1e-4)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=5e-3)
