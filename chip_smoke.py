@@ -4,21 +4,42 @@
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CLAHE kernels from ``meatmodeler_tpu_torch/csrc`` (nvcc),
-     removing any library left from an earlier build first;
-  3. hold each kernel against its plain PyTorch version on the card (the
-     LUT bit-exact, apply within 1e-4) on seeded images, a flat image, an
-     unaligned width under two tile grids and a two-tone board;
-  4. render the headline clip (300 frames, 1080p) on the card and run
-     ``process`` with ``headline_config()`` and the renderer's board
-     corners twice, with the launch counts reset just before; check the
+  2. build the kernels from ``meatmodeler_tpu_torch/csrc`` (nvcc, one
+     process per source, all started together), removing any library left
+     from an earlier build first;
+  3. hold each CLAHE kernel against its plain PyTorch version on the card
+     (the LUT bit-exact, apply within 1e-4) on seeded images, a flat image,
+     an unaligned width under two tile grids and a two-tone board;
+  3b. hold the Lucas-Kanade kernel against its plain version (status and
+     NaN patterns equal, the held points within eps = 0.01 px with the
+     median within 1e-4, errors within 1e-4 where the points agree; held
+     are all entries, and where a call is seeded with offsets the live
+     ones, ``tools/klt_bench.held_entries`` says why, and such a call's
+     plain version on the CPU is printed against it on the card) on
+     seeded textures at the three callers' settings: the scan's (180, 320)
+     and the odometry's (720, 1280), 128 points, win 21, 4 levels, 10
+     iterations, and two_view's (540, 960, win 15, one level, seeded at the
+     match offset); then a flat image, masked points, and points on, beyond
+     and far outside the border and NaN; then render the headline clip
+     (300 frames, 1080p) on the card;
+  4. run ``process`` on the clip with ``headline_config()`` and the
+     renderer's board corners twice, with the launch counts reset just
+     before; check the
      repo's accuracy bounds and that every kernel ran on this path; then
      compare the kernels once more at the path's own CLAHE input (all
      keyframes, grey at 540x960) and time them there;
   5. the board-finding default path: the same clip through ``process`` with
      ``detector_config(headline_config())`` (device pass 1, ``bgr_lab``
      enhance, device chessboard detector) and NO known corners, twice, with
-     the launch counts reset just before; the same checks; then compare
+     the launch counts reset just before; the same checks, and exactly one
+     ``lk_track`` launch per frame the keyframe scan took; then the clip
+     once more with the plain Lucas-Kanade in place of the kernel: its scan
+     flags and keyframe indices must be the kernel runs'; then the
+     Lucas-Kanade kernel compared as in 3b at the scan's first call between
+     two frames in the kernel runs (recorded: the clip's first two CLAHE'd
+     pass-1 greys, 128 Shi-Tomasi points, the headline config's win 15, 4
+     levels, 10 iterations) and timed there (device medians, cold L2) beside the
+     bound from the work this run's data needed; then compare
      the kernels at this path's two CLAHE inputs, the first pass-1 chunk
      (32, 180, 320) and the keyframes' LAB lightness (n_kf, 540, 960), and
      time them there too;
@@ -53,11 +74,17 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      checks per clip, then the same two through ``process`` one after the
      other; seconds and rmse of both are printed;
   9. odometry: ``chain_poses`` over the board-free clip of phase 6 with the
-     scene's K (launch counts reset just before): more than 50 points
+     scene's K (launch counts reset just before), one ``lk_track`` launch
+     per step: more than 50 points
      tracked in every step and a chained-rotation error under 6 degrees
      over the first 10 steps (the JAX package's test bound); the drift over
-     the clip is printed; then the kernels compared and timed at its input
-     (one 720x1280 frame) and at a batch clip's keyframes; last, the
+     the clip is printed; then ``two_view.reconstruct_two_view`` on two of
+     its frames (launch counts reset just before): one ``lk_track`` launch,
+     at least 50 inliers, finite points; the Lucas-Kanade kernel compared
+     and timed at both paths' own inputs (the odometry's first step, the
+     two-view's matches); then the CLAHE kernels compared
+     and timed at the odometry's input (one 720x1280 frame) and at a batch
+     clip's keyframes; last, the
      command line as a subprocess, ``python3 -m meatmodeler_tpu_torch.cli``
      on one batch clip saved as ``.npy`` with ``--detector device --json``,
      then on two with ``--schedule mesh``: exit 0 and the JSON payload's keys;
@@ -82,38 +109,55 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      with more than one GPU, (b)-(d) again over the distinct GPUs, through
      NCCL, and the kernels compared on ``cuda:1``.
 Kernel times are device medians with a cold L2 and the host's launch time
-hidden (``tools/clahe_bench.time_ms``), each printed beside the bytes the
-kernel must move, its bound at the card's memory rate and the share of it
-reached. The last two lines are a JSON record of the kernels (launches
-summed over all paths; times, bound and share at the known path's
-keyframes) and the device line.
+hidden (``tools/clahe_bench.time_ms``), each printed beside its bound and
+the share of it reached: for CLAHE the bytes it must move at the card's
+memory rate; for Lucas-Kanade the larger of the bytes its windows read
+and its operations at the card's float32 rate, counted from the
+iterations this run's points ran and where they sampled
+(``tools/klt_bench``). The last two lines are a JSON record of the
+kernels (launches summed over all paths; CLAHE's times, bound and share at
+the known path's keyframes, Lucas-Kanade's at the scan's input) and the
+device line.
 Per-stage attribution, device busy share and the e2e spread come from
 ``python3 -m meatmodeler_tpu_torch.tools.profile_headline``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from meatmodeler_tpu_torch import pipeline
 from meatmodeler_tpu_torch.config import SolverConfig
 from meatmodeler_tpu_torch.geometry import projection
 from meatmodeler_tpu_torch.io import native_ops
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
-from meatmodeler_tpu_torch.ops import clahe_cuda, color, matching
+from meatmodeler_tpu_torch.ops import clahe_cuda, color, klt, klt_cuda, matching
 from meatmodeler_tpu_torch.parallel import sharded
 from meatmodeler_tpu_torch.parallel.batch import process_batch
 from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
 from meatmodeler_tpu_torch.pipeline import process
 from meatmodeler_tpu_torch.solvers import bundle_adjust
 from meatmodeler_tpu_torch.tools.clahe_bench import time_kernels
+from meatmodeler_tpu_torch.tools.klt_bench import (
+    describe,
+    held_entries,
+    lk_agreement,
+    lk_agrees,
+    lk_case,
+    lk_kernel,
+    time_lk,
+)
 from meatmodeler_tpu_torch.tools.profile_headline import (
     HEADLINE_FRAMES,
     PP_SEED,
@@ -132,6 +176,7 @@ from meatmodeler_tpu_torch.tools.profile_headline import (
     synthetic_ba_problem,
     with_dtype,
 )
+from meatmodeler_tpu_torch.two_view import reconstruct_two_view
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "build" / "chip_smoke"
@@ -150,10 +195,65 @@ JAX_BATCH_VOLUME_ERR = [0.023, 0.239, 0.237, 0.262, 0.178, 0.238, 0.215, 0.304]
 ODOMETRY_ROT_ERR_MAX_DEG = 6.0  # over the first 10 steps (tests/test_odometry.py)
 CLI_PAYLOAD_KEYS = {"video", "points", "keyframes", "volume", "volume_carved", "reprojection_rmse", "ply", "timings",
                     "counters"}
+# name -> (what it replaces, its source)
 KERNELS = {
-    "clahe_lut": ("meatmodeler_tpu/ops/clahe_pallas.py:192", "_lut_kernel"),
-    "clahe_apply": ("meatmodeler_tpu/ops/clahe_pallas.py:208", "_apply_kernel"),
+    "clahe_lut": ("meatmodeler_tpu/ops/clahe_pallas.py:192", "meatmodeler_tpu_torch/csrc/clahe.cu"),
+    "clahe_apply": ("meatmodeler_tpu/ops/clahe_pallas.py:208", "meatmodeler_tpu_torch/csrc/clahe.cu"),
+    # An XLA fusion (jit of a vmap over points), not a pallas_call.
+    "lk_track": ("meatmodeler_tpu/ops/klt.py:131", "meatmodeler_tpu_torch/csrc/klt.cu"),
 }
+CLAHE = ("clahe_lut", "clahe_apply")
+# Phase 3b's seeded Lucas-Kanade cases (``tools/klt_bench.lk_case``).
+LK_CASES = ("scan", "odometry", "two_view", "flat", "masked", "scan_edges", "two_view_edges")
+
+
+def reset_counts() -> None:
+    clahe_cuda.reset_launches()
+    klt_cuda.reset_launches()
+
+
+def counts() -> dict:
+    return {**clahe_cuda.LAUNCHES, **klt_cuda.LAUNCHES}
+
+
+def add_counts(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] += v
+
+
+@contextlib.contextmanager
+def scan_recorder():
+    """Records the flags of every keyframe-scan chunk the pipeline runs
+    (one (frames,) bool tensor per call) by wrapping the scan it builds."""
+    real = pipeline._make_keyframe_scan
+    record = []
+
+    def make(config):
+        init, scan_chunk = real(config)
+
+        def chunk(carry, greys, width_scale=1):
+            carry, flags = scan_chunk(carry, greys, width_scale=width_scale)
+            record.append(flags)
+            return carry, flags
+
+        return init, chunk
+
+    pipeline._make_keyframe_scan = make
+    try:
+        yield record
+    finally:
+        pipeline._make_keyframe_scan = real
+
+
+@contextlib.contextmanager
+def plain_lk():
+    """Lucas-Kanade through its plain version on the card, for comparison."""
+    real = klt.lucas_kanade
+    klt.lucas_kanade = klt.lucas_kanade_reference
+    try:
+        yield
+    finally:
+        klt.lucas_kanade = real
 
 
 def _gpu_line() -> str:
@@ -209,22 +309,72 @@ def time_at(label, img, timings):
     in ``timings[label]``."""
     rows = timings[label] = time_kernels(img)
     rows["shape"] = list(img.shape)
-    for name in KERNELS:
+    for name in CLAHE:
         r = rows[name]
         print(f"time {label} {tuple(img.shape)} {name}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f} ms), "
               f"{r['bytes']} B, bound {r['bound_ms']:.6f} ms, share of bound {r['share']:.3f}")
 
 
+def compare_lk(cases, err):
+    """The Lucas-Kanade kernel against its plain version at each (label,
+    case): ``klt.lucas_kanade`` must give bit for bit what one launch of
+    the wrapper gives, and that must agree with the plain version
+    (``tools/klt_bench.lk_agreement``); raises on disagreement, folds the
+    max point difference into ``err``."""
+    for label, (prev, curr, pts, mask, flow, s) in cases:
+        got = klt.lucas_kanade(prev, curr, pts, point_mask=mask, initial_flow=flow, **s)
+        res, iterations, _ = lk_kernel(prev, curr, pts, mask, flow, s)
+        ref = klt.lucas_kanade_reference(prev, curr, pts, point_mask=mask, initial_flow=flow, **s)
+        torch.cuda.synchronize()
+        held = held_entries(pts, mask, flow)
+        a = lk_agreement(res, ref, held)
+        print(f"kernel check lk_track {label} {tuple(prev[0].shape)} x {len(pts)} points {s}: tracked "
+              f"{int(res.status.sum())}, {json.dumps(a)}; padding entries that converged: "
+              f"{int(((iterations < s['max_iters']).all(dim=1) & ~held).sum())}")
+        if flow is not None:
+            cpu = klt.lucas_kanade_reference([p.cpu() for p in prev], [p.cpu() for p in curr], pts.cpu(),
+                                             point_mask=None if mask is None else mask.cpu(),
+                                             initial_flow=flow.cpu(), **s)
+            spread = lk_agreement(klt.FlowResult(*(t.to(pts.device) for t in cpu)), ref, held)
+            print(f"  the plain version on the CPU against it on the card: {json.dumps(spread)}")
+        for x, y in zip(got, res):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"lucas_kanade and one lk_track launch differ at {label}")
+        if not lk_agrees(a, s["eps"]):
+            raise AssertionError(f"lk_track disagrees with its plain version at {label}")
+        err["lk_track"] = max(err["lk_track"], a["max_point"])
+
+
+def lk_call_case(call):
+    """A recorded ``klt.lucas_kanade`` call as a (prev, curr, points, mask,
+    initial flow, settings) case."""
+    bound = inspect.signature(klt.lucas_kanade).bind(*call[0], **call[1])
+    bound.apply_defaults()
+    a = bound.arguments
+    s = {k: a[k] for k in ("win", "levels", "max_iters", "eps")}
+    return a["prev_pyr"], a["curr_pyr"], a["points"], a["point_mask"], a["initial_flow"], s
+
+
+def time_lk_at(label, case, timings):
+    timings[label] = time_lk(*case)
+    print("time " + describe(label, timings[label]))
+
+
 def run_path(label, scene, frames, corners, config):
     """One path through ``process`` on the headline clip, twice, with the
-    launch counts reset just before and read just after. Returns (launches,
-    counters of the last run)."""
-    clahe_cuda.reset_launches()
+    launch counts reset just before and read just after. With the device
+    pass 1 the keyframe scan must launch ``lk_track`` exactly once per
+    frame it takes. Returns (launches, counters of the last run, that run's
+    scan flags or None)."""
+    reset_counts()
+    scanned = 0
     for run in range(2):
-        t0 = time.perf_counter()
-        res = process(frames, path=str(OUT / f"{label}{run}"), config=config, known_corners=corners, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with scan_recorder() as record:
+            t0 = time.perf_counter()
+            res = process(frames, path=str(OUT / f"{label}{run}"), config=config, known_corners=corners, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        scanned += sum(len(f) for f in record)
         c = res.metrics["counters"]
         vol_err = (res.volume - scene.volume) / scene.volume
         low = res.volume_confidence["low_confidence"]
@@ -234,7 +384,8 @@ def run_path(label, scene, frames, corners, config):
               f"rmse {res.reprojection_rmse:.4f} volume {res.volume:.4f} carved {res.volume_carved:.4f} "
               f"truth {scene.volume:.4f} err {vol_err:+.4f} confidence {json.dumps(res.volume_confidence)}")
         print(f"  keyframe indices {c['keyframe_indices']}")
-        print(f"  clahe_cuda.LAUNCHES {clahe_cuda.LAUNCHES}")
+        print(f"  pass1_keyframes {res.metrics['timings']['pass1_keyframes']:.4f} s (unsynced), frames scanned "
+              f"{sum(len(f) for f in record)}, launches so far {counts()}")
         if c["keyframes"] < 3 or len(res.points) < 500:
             raise AssertionError("too few keyframes or points")
         if not (np.isfinite(res.reprojection_rmse) and res.reprojection_rmse <= RMSE_MAX_PX):
@@ -243,17 +394,42 @@ def run_path(label, scene, frames, corners, config):
             raise AssertionError("non-finite or misshapen cloud")
         if not low and not abs(vol_err) <= VOLUME_ERR_MAX:
             raise AssertionError(f"hull volume error {vol_err} outside {VOLUME_ERR_MAX}")
-    launches = dict(clahe_cuda.LAUNCHES)
-    if min(launches.values()) <= 0:
+    launches = counts()
+    if min(launches[k] for k in CLAHE) <= 0:
         raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
-    return launches, c
+    if config.pass1_backend == "device":
+        print(f"[{label}] lk_track launches {launches['lk_track']} for {scanned} frames scanned in two runs")
+        if scanned == 0 or launches["lk_track"] != scanned:
+            raise AssertionError(f"the keyframe scan did not launch lk_track once per frame: {launches}, {scanned}")
+    return launches, c, (torch.cat(record).cpu() if record else None)
+
+
+def check_scan_plain(frames, config, flags, kf_indices):
+    """Phase 5: the clip once more with the plain Lucas-Kanade on the card:
+    its scan flags and keyframe indices must be the kernel run's."""
+    before = klt_cuda.LAUNCHES["lk_track"]
+    with scan_recorder() as record, plain_lk():
+        t0 = time.perf_counter()
+        res = process(frames, config=config, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    plain = torch.cat(record).cpu()
+    kf = res.metrics["counters"]["keyframe_indices"]
+    same = torch.equal(plain, flags) and kf == kf_indices
+    print(f"[detector] plain Lucas-Kanade on the card: wall {wall:.3f} s, pass1_keyframes "
+          f"{res.metrics['timings']['pass1_keyframes']:.4f} s (unsynced), {len(plain)} frames scanned, "
+          f"{int(plain.sum())} flagged; keyframe indices {kf}; same as the kernel's: {same}")
+    if klt_cuda.LAUNCHES["lk_track"] != before:
+        raise AssertionError("the plain run launched lk_track")
+    if not same:
+        raise AssertionError("the scan's keyframes with lk_track differ from the plain version's")
 
 
 def run_markerless(scene, frames, poses):
     """Phase 6's two ``markerless_config()`` runs, with the launch counts
     reset just before and read just after. Returns (launches, counters)."""
     config = markerless_config()
-    clahe_cuda.reset_launches()
+    reset_counts()
     for run in range(2):
         t0 = time.perf_counter()
         res = process(frames, path=str(OUT / f"markerless{run}"), config=config, device="cuda")
@@ -283,8 +459,8 @@ def run_markerless(scene, frames, poses):
             raise AssertionError(f"rmse {res.reprojection_rmse} outside {RMSE_MAX_PX}")
         if not np.isfinite(res.volume):
             raise AssertionError("non-finite hull volume")
-    launches = dict(clahe_cuda.LAUNCHES)
-    if min(launches.values()) <= 0:
+    launches = counts()
+    if min(launches[k] for k in CLAHE) <= 0:
         raise AssertionError(f"a kernel of the markerless path never launched: {launches}")
     return launches, c
 
@@ -327,7 +503,7 @@ def run_batch(scene, clips):
     (launches, the first clip's counters)."""
     config = batch_config()
     n_frames = sum(len(c) for c in clips)
-    clahe_cuda.reset_launches()
+    reset_counts()
     rmse = []
     for run, mesh in enumerate((None, sharded.make_mesh())):
         before = dict(clahe_cuda.LAUNCHES)
@@ -336,7 +512,7 @@ def run_batch(scene, clips):
             results = process_batch(clips, config=config, device="cuda", mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = {k: clahe_cuda.LAUNCHES[k] - before[k] for k in KERNELS}
+        launched = {k: clahe_cuda.LAUNCHES[k] - before[k] for k in CLAHE}
         rmse.append(np.array([r.reprojection_rmse for r in results]))
         on = "no mesh" if mesh is None else f"mesh {mesh.shape} over {[str(r[0]) for r in mesh.devices]}"
         print(f"[batch] run {run} ({on}): wall {wall:.3f} s for {len(clips)} clips ({n_frames / wall:.2f} fps "
@@ -366,19 +542,19 @@ def run_batch(scene, clips):
           f"without (whole runs, float32): {float(np.max(np.abs(rmse[1] - rmse[0]) / rmse[0])):.3g}")
     if not (diff <= 1e-4 and torch.equal(with_mesh.iterations, without.iterations)):
         raise AssertionError("the batch solve over a mesh disagrees with the solve without")
-    return dict(clahe_cuda.LAUNCHES), results[0].metrics["counters"]
+    return counts(), results[0].metrics["counters"]
 
 
 def run_pipelined(scene, clips, corners):
     """Phase 8: ``process_batch_pipelined`` on two 300-frame clips, then the
     same two through ``process``. Returns the pipelined run's launches."""
     config = headline_config()
-    clahe_cuda.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     piped = process_batch_pipelined(clips, config=config, known_corners=corners)
     torch.cuda.synchronize()
     t_pipe = time.perf_counter() - t0
-    launches = dict(clahe_cuda.LAUNCHES)
+    launches = counts()
     t0 = time.perf_counter()
     seq = [process(v, config=config, known_corners=c, device="cuda") for v, c in zip(clips, corners)]
     torch.cuda.synchronize()
@@ -390,20 +566,20 @@ def run_pipelined(scene, clips, corners):
         vol_err = check_clip(p, scene)
         print(f"  clip {i}: keyframes {p.metrics['counters']['keyframes']} points {len(p.points)} rmse "
               f"{p.reprojection_rmse:.4f} (one after the other {q.reprojection_rmse:.4f}) volume err {vol_err:+.4f}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in CLAHE) <= 0:
         raise AssertionError(f"a kernel of the pipelined path never launched: {launches}")
     return launches
 
 
 def run_odometry(scene, frames, poses):
-    """Phase 9a: ``chain_poses`` over the board-free clip. Returns its
-    launches."""
-    clahe_cuda.reset_launches()
+    """Phase 9a: ``chain_poses`` over the board-free clip, one ``lk_track``
+    launch per step. Returns its launches."""
+    reset_counts()
     t0 = time.perf_counter()
     res = chain_poses(frames, scene.intrinsics, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(clahe_cuda.LAUNCHES)
+    launches = counts()
     acc = odometry_accuracy(res, poses)
     print(f"[odometry] wall {wall:.3f} s ({wall / len(frames):.4f} s per frame), launches {launches}")
     print(f"  tracked per step min {acc['min_tracked']}, inliers per step min {int(res.num_inliers[1:].min())}; "
@@ -414,13 +590,34 @@ def run_odometry(scene, frames, poses):
         raise AssertionError(f"odometry tracked too few points: {res.num_tracked}")
     if not acc["rot_err_first_deg"] < ODOMETRY_ROT_ERR_MAX_DEG:
         raise AssertionError(f"odometry rotation error {acc['rot_err_first_deg']} deg over the first 10 steps")
-    if min(launches.values()) < len(frames):
+    if min(launches[k] for k in CLAHE) < len(frames):
         raise AssertionError(f"a kernel did not launch for every frame of the odometry: {launches}")
+    if launches["lk_track"] != len(frames) - 1:
+        raise AssertionError(f"lk_track did not launch once per odometry step: {launches}")
+    return launches
+
+
+def run_two_view(scene, frames):
+    """Phase 9b: ``two_view.reconstruct_two_view`` on two frames of the
+    board-free clip (launch counts reset just before): one ``lk_track``
+    launch polishes its matches. Returns its launches."""
+    reset_counts()
+    t0 = time.perf_counter()
+    res = reconstruct_two_view(frames[0], frames[4], scene.intrinsics, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    n_in = int(res.num_inliers)
+    print(f"[two_view] frames 0 and 4: {wall:.3f} s, {n_in} inliers of {len(res.pts1)} matches, launches {launches}")
+    if n_in < 50 or not torch.isfinite(res.points[res.inliers]).all():
+        raise AssertionError(f"two-view reconstruction failed: {n_in} inliers")
+    if launches["lk_track"] != 1:
+        raise AssertionError(f"lk_track did not launch once in reconstruct_two_view: {launches}")
     return launches
 
 
 def run_cli(clips):
-    """Phase 9b: the command line as a subprocess, on one batch clip saved
+    """Phase 9c: the command line as a subprocess, on one batch clip saved
     as ``.npy`` and then on two with ``--schedule mesh``."""
     paths = []
     for i, clip in enumerate(clips[:2]):
@@ -475,18 +672,18 @@ def check_preprocess(devices, frames):
     one device; returns the launches of the sharded run."""
     mesh = sharded.make_mesh(data=len(devices), devices=devices)
     frames = frames[: len(frames) - len(frames) % len(devices)]
-    clahe_cuda.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     out = sharded.preprocess_sharded(mesh, frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(clahe_cuda.LAUNCHES)
+    launches = counts()
     err = float((out - clahe_mod.enhanced_grey(frames.to(out.device))).abs().max())
     print(f"[mesh] preprocess_sharded over {len(devices)} ({devices[0]}...): {tuple(frames.shape)} in {wall:.4f} s, "
           f"max|d| against one device {err:.3g}, launches {launches}")
     if not err <= 1e-3:
         raise AssertionError(f"preprocess_sharded disagrees with enhanced_grey: {err}")
-    if min(launches.values()) < len(devices):
+    if min(launches[k] for k in CLAHE) < len(devices):
         raise AssertionError(f"a kernel did not launch on every shard of preprocess_sharded: {launches}")
     return launches
 
@@ -564,13 +761,18 @@ def main() -> int:
     gpu = _gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {gpu} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    clahe_cuda.LIBRARY.unlink(missing_ok=True)
+    libraries = (clahe_cuda, klt_cuda)
+    for lib in libraries:
+        lib.LIBRARY.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    clahe_cuda.build()
-    print(f"built {clahe_cuda.LIBRARY} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, all at once
+        list(pool.map(lambda lib: lib.build(), libraries))
+    print(f"built {', '.join(str(lib.LIBRARY) for lib in libraries)} in {time.perf_counter() - t0:.2f} s")
 
-    err = {"clahe_lut": 0.0, "clahe_apply": 0.0}
+    err = {name: 0.0 for name in KERNELS}
     compare_kernels(dev, seeded_cases(dev), err)
+    # Phase 3b: the Lucas-Kanade kernel against its plain version on seeded inputs.
+    compare_lk([(c, lk_case(c, dev)) for c in LK_CASES], err)
 
     t0 = time.perf_counter()
     scene, frames, corners = headline_clip(dev)
@@ -578,12 +780,12 @@ def main() -> int:
     print(f"rendered {frames.shape} in {time.perf_counter() - t0:.2f} s")
     OUT.mkdir(parents=True, exist_ok=True)
     config = headline_config()
-    timings = {}
+    timings, lk_timings = {}, {}
 
     # Phase 4: known corners, host pass 1, grey enhance; its BA problem and
     # keyframe descriptors are recorded for phase 10.
     with recording(bundle_adjust, "solve_ba") as solves, recording(matching, "match_descriptors") as matches:
-        launches, c = run_path("known", scene, frames, corners, config)
+        launches, c, _ = run_path("known", scene, frames, corners, config)
     ba_problem = [args[0] for args, kwargs in solves if not kwargs.get("fix_points")][-1]
     q, t, qm, tm = matches[-1][0][:4]
     kf_pair = (q[0], t[0], qm[0], tm[0])
@@ -595,11 +797,20 @@ def main() -> int:
     compare_kernels(dev, [("known-path keyframes", grey, (8, 8))], err)
     time_at("known-path keyframes", grey, timings)
 
-    # Phase 5: the board-finding default path, video alone.
+    # Phase 5: the board-finding default path, video alone; its scan's
+    # Lucas-Kanade calls are recorded to compare and time the kernel at the
+    # first between two frames.
     dconfig = detector_config(config)
-    launches_d, c = run_path("detector", scene, frames, None, dconfig)
-    for k in launches:
-        launches[k] += launches_d[k]
+    with recording(klt, "lucas_kanade") as calls:
+        launches_d, c, flags = run_path("detector", scene, frames, None, dconfig)
+    # The scan's first call tracks its start frame against itself.
+    scan_lk = next(case for case in map(lk_call_case, calls) if not torch.equal(case[0][0], case[1][0]))
+    del calls
+    add_counts(launches, launches_d)
+    check_scan_plain(frames, dconfig, flags, c["keyframe_indices"])
+    compare_lk([("headline scan input", scan_lk)], err)
+    time_lk_at("headline scan input", scan_lk, lk_timings)
+    del scan_lk
     # Its two CLAHE inputs, rebuilt from the clip as the path builds them.
     p1s, p2s = dconfig.pass1_downscale, dconfig.pass2_downscale
     chunk = torch.from_numpy(native_ops.bgr_to_grey_down(frames[: dconfig.frame_chunk], p1s)).to(dev).float()
@@ -615,28 +826,25 @@ def main() -> int:
     mscene, mframes, mposes = markerless_clip(dev)
     print(f"rendered {mframes.shape} in {time.perf_counter() - t0:.2f} s")
     launches_m, c = run_markerless(mscene, mframes, mposes)
-    for k in launches:
-        launches[k] += launches_m[k]
+    add_counts(launches, launches_m)
     mconfig = markerless_config()
     p2s = mconfig.pass2_downscale
     kf_grey = np.ascontiguousarray(mframes[c["keyframe_indices"]])
     kf_grey = torch.from_numpy(native_ops.bgr_to_grey_down(np.repeat(kf_grey[..., None], 3, axis=-1), p2s)).to(dev).float()
     compare_kernels(dev, [("marker-free keyframes", kf_grey, (8, 8))], err)
     time_at("marker-free keyframes", kf_grey, timings)
-    clahe_cuda.reset_launches()
+    reset_counts()
     run_fallback(mframes)
-    if min(clahe_cuda.LAUNCHES.values()) <= 0:
-        raise AssertionError(f"a kernel of the fallback path never launched: {clahe_cuda.LAUNCHES}")
-    for k in launches:
-        launches[k] += clahe_cuda.LAUNCHES[k]
+    if min(counts().values()) <= 0:
+        raise AssertionError(f"a kernel of the fallback path never launched: {counts()}")
+    add_counts(launches, counts())
 
     # Phase 7: the multi-video batch.
     t0 = time.perf_counter()
     bscene, bclips = batch_clips(dev)
     print(f"rendered {len(bclips)} x {bclips[0].shape} in {time.perf_counter() - t0:.2f} s")
     launches_b, c = run_batch(bscene, bclips)
-    for k in launches:
-        launches[k] += launches_b[k]
+    add_counts(launches, launches_b)
     batch_kf = torch.from_numpy(
         native_ops.bgr_to_grey_down(np.ascontiguousarray(bclips[0][c["keyframe_indices"]]), c["kf_scale"])
     ).to(dev).float()
@@ -644,15 +852,21 @@ def main() -> int:
     # Phase 8: the pipelined schedule on the headline clip and a seed-7 render.
     _, frames7, corners7 = headline_clip(dev, seed=PP_SEED)
     launches_p = run_pipelined(scene, [frames, frames7], [corners, corners7])
-    for k in launches:
-        launches[k] += launches_p[k]
+    add_counts(launches, launches_p)
     frames32 = torch.from_numpy(np.ascontiguousarray(frames[:32]))
     del frames, frames7
 
-    # Phase 9: odometry over the board-free clip, its kernels, the CLI.
-    launches_o = run_odometry(mscene, mframes, mposes)
-    for k in launches:
-        launches[k] += launches_o[k]
+    # Phase 9: odometry over the board-free clip, two-view, the kernels, the CLI.
+    with recording(klt, "lucas_kanade") as calls:
+        add_counts(launches, run_odometry(mscene, mframes, mposes))
+    odometry_lk = lk_call_case(calls[0])
+    with recording(klt, "lucas_kanade") as calls:
+        add_counts(launches, run_two_view(mscene, mframes))
+    lk_cases = [("odometry step 1", odometry_lk), ("two-view matches", lk_call_case(calls[0]))]
+    del calls
+    compare_lk(lk_cases, err)
+    for label, case in lk_cases:
+        time_lk_at(label, case, lk_timings)
     frame = torch.from_numpy(np.ascontiguousarray(mframes[:1])).to(dev).float()
     compare_kernels(dev, [("odometry frame", frame, (8, 8)), ("batch-clip keyframes", batch_kf, (8, 8))], err)
     time_at("odometry frame", frame, timings)
@@ -662,29 +876,32 @@ def main() -> int:
 
     # Phase 10: the mesh.
     launches_s = run_mesh(dev, ba_problem, kf_pair, frames32, err, timings)
-    for k in launches:
-        launches[k] += launches_s[k]
+    add_counts(launches, launches_s)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "meatmodeler_tpu", "bench"))
     if loaded:
         raise AssertionError(f"the port loaded the JAX package or its bench: {loaded}")
 
     main = timings["known-path keyframes"]
+    rows = {name: dict(main[name], bound_by="bytes", at=main["shape"]) for name in CLAHE}
+    lk_main = lk_timings["headline scan input"]
+    rows["lk_track"] = dict(lk_main, at=[*lk_main["shape"], lk_main["points"]])
     record = {
         "kernels": [
             {
                 "name": name,
                 "route": "cuda",
-                "source": "meatmodeler_tpu_torch/csrc/clahe.cu",
+                "source": KERNELS[name][1],
                 "replaces": KERNELS[name][0],
                 "launches": launches[name],
                 "max_abs_err": err[name],
-                "ms": main[name]["ms"],
-                "plain_ms": main[name]["plain_ms"],
-                "bound_ms": main[name]["bound_ms"],
-                "bound_by": "bytes",
-                "share": main[name]["share"],
-                "library_ms": None,  # no single PyTorch call computes a tile-LUT CLAHE
-                "at": main["shape"],
+                "ms": rows[name]["ms"],
+                "plain_ms": rows[name]["plain_ms"],
+                "bound_ms": rows[name]["bound_ms"],
+                "bound_by": rows[name]["bound_by"],
+                "share": rows[name]["share"],
+                # No single PyTorch call computes a tile-LUT CLAHE or pyramidal LK.
+                "library_ms": None,
+                "at": rows[name]["at"],
             }
             for name in KERNELS
         ]

@@ -188,9 +188,10 @@ def _warmup(size, config, device) -> int:
     w, h = size
     t0 = time.time()
     if device == "cuda":
-        from meatmodeler_tpu_torch.ops import clahe_cuda
+        from meatmodeler_tpu_torch.ops import clahe_cuda, klt_cuda
 
         clahe_cuda.build()
+        klt_cuda.build()
         print(f"warmup: kernels built ({time.time() - t0:.1f}s)", file=sys.stderr)
     scene = TurntableScene(
         image_size=(w, h), focal=0.78 * max(w, h), noise_sigma=1.0,

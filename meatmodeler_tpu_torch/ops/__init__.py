@@ -1,2 +1,4 @@
-"""Image ops (torch twins of ``meatmodeler_tpu/ops``); ``clahe`` holds the
-package's hand-written CUDA kernels (``clahe_cuda`` / ``csrc/clahe.cu``)."""
+"""Image ops (torch twins of ``meatmodeler_tpu/ops``). The package's
+hand-written CUDA kernels sit behind ``clahe`` (``clahe_cuda`` /
+``csrc/clahe.cu``) and ``klt`` (``klt_cuda`` / ``csrc/klt.cu``), built by
+``cuda_build``."""

@@ -1,95 +1,47 @@
-"""Build, bind and launch the CLAHE CUDA kernels (``csrc/clahe.cu``).
+"""Bind and launch the CLAHE CUDA kernels (``csrc/clahe.cu``).
 
-The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/meatmodeler_tpu_torch/`` beside the package, and loaded with
-``ctypes`` (plain C interface: pointers and the stream as ``c_void_p``).
-Nothing here is imported or built at module import; a failed build or
-launch raises. ``LAUNCHES`` counts each kernel's launches so a run can show
-that its main path went through the kernels.
+The library is built and loaded by ``ops/cuda_build.py`` (nvcc for
+``sm_90a`` at first use, ctypes); nothing here is built at module import,
+and a failed build or launch raises. ``LAUNCHES`` counts each kernel's
+launches so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
+from meatmodeler_tpu_torch.ops import cuda_build
 from meatmodeler_tpu_torch.ops.clahe import tile_geometry
 
 __all__ = ["clahe_cuda", "clahe_lut", "clahe_apply", "build", "LAUNCHES", "reset_launches"]
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "clahe.cu"
-BUILD_DIR = _PKG.parent / "build" / "meatmodeler_tpu_torch"
-LIBRARY = BUILD_DIR / "libclahe.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
-
 # Launch counts per kernel, incremented only where the kernel is launched.
 LAUNCHES = {"clahe_lut": 0, "clahe_apply": 0}
 
-_lib = None
-_lock = threading.Lock()
-# Guards LAUNCHES: the batch entry points launch from two host threads.
-_count_lock = threading.Lock()
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.clahe_lut.argtypes = [p, p, i, i, i, i, i, i, i, i, p]
+    lib.clahe_lut.restype = i
+    lib.clahe_apply.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.clahe_apply.restype = i
 
 
-def reset_launches() -> None:
-    with _count_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count(name: str) -> None:
-    with _count_lock:
-        LAUNCHES[name] += 1
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CLAHE kernels")
+_LIB = cuda_build.CudaLibrary("clahe", _bind)
+SOURCE, LIBRARY = _LIB.source, _LIB.path
 
 
 def build() -> ctypes.CDLL:
     """Compile (when the library is missing or older than its source) and
     load the kernel library; raises with nvcc's output on failure."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if not LIBRARY.exists() or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = LIBRARY.with_suffix(f".tmp{os.getpid()}.so")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed building {SOURCE}:\n{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, LIBRARY)
-        lib = ctypes.CDLL(str(LIBRARY))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.clahe_lut.argtypes = [p, p, i, i, i, i, i, i, i, i, p]
-        lib.clahe_lut.restype = i
-        lib.clahe_apply.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-        lib.clahe_apply.restype = i
-        _lib = lib
-        return lib
+    return _LIB.load()
+
+
+def reset_launches() -> None:
+    cuda_build.reset(LAUNCHES)
 
 
 def _check_image(img: torch.Tensor) -> None:
@@ -122,7 +74,7 @@ def clahe_lut(img: torch.Tensor, clip_limit: float, tiles: Tuple[int, int]) -> t
         stream = torch.cuda.current_stream(img.device).cuda_stream
         code = lib.clahe_lut(img.data_ptr(), lut.data_ptr(), b, h, w, ty, tx, th, tw, clip, stream)
     _raise_on(code, "clahe_lut_kernel")
-    _count("clahe_lut")
+    cuda_build.count(LAUNCHES, "clahe_lut")
     return lut
 
 
@@ -144,7 +96,7 @@ def clahe_apply(img: torch.Tensor, lut: torch.Tensor, tiles: Tuple[int, int]) ->
             img.data_ptr(), lut.data_ptr(), out.data_ptr(), b, h, w, ty, tx, th, tw, stream
         )
     _raise_on(code, "clahe_apply_kernel")
-    _count("clahe_apply")
+    cuda_build.count(LAUNCHES, "clahe_apply")
     return out
 
 

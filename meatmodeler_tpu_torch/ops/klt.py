@@ -1,7 +1,10 @@
 """Pyramidal Lucas-Kanade optical flow (torch twin of
-``meatmodeler_tpu/ops/klt.py``), vectorised over points.
+``meatmodeler_tpu/ops/klt.py``).
 
-Every point runs the same fixed number of iterations at every level; a
+:func:`lucas_kanade` tracks CUDA tensors in one launch of the hand-written
+kernel (``ops/klt_cuda.py``, ``csrc/klt.cu``) and CPU tensors through
+:func:`lucas_kanade_reference`, the plain version, vectorised over points:
+every point runs the same fixed number of iterations at every level, and a
 point whose update falls below ``eps`` (or whose gradient matrix is
 singular) keeps its displacement, as the reference's ``fori_loop`` body
 does. Outputs match ``cv2.calcOpticalFlowPyrLK``'s: tracked points, a
@@ -15,7 +18,9 @@ from typing import List, NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
-__all__ = ["FlowResult", "build_pyramid", "lucas_kanade"]
+from meatmodeler_tpu_torch.ops import klt_cuda
+
+__all__ = ["FlowResult", "build_pyramid", "lucas_kanade", "lucas_kanade_reference"]
 
 
 class FlowResult(NamedTuple):
@@ -106,6 +111,33 @@ def _lk_level(prev_img, curr_img, prev_pt, guess, win: int, max_iters: int, eps:
 
 
 def lucas_kanade(
+    prev_pyr: Sequence[torch.Tensor],
+    curr_pyr: Sequence[torch.Tensor],
+    points: torch.Tensor,
+    win: int = 21,
+    levels: int = 4,
+    max_iters: int = 30,
+    eps: float = 0.01,
+    point_mask: torch.Tensor | None = None,
+    initial_flow: torch.Tensor | None = None,
+) -> FlowResult:
+    """Track ``points`` (N, 2) (x, y) from the previous to the current frame
+    through (H, W) pyramids from :func:`build_pyramid`: one launch of the
+    CUDA kernel for pyramids on the card, :func:`lucas_kanade_reference`
+    for pyramids on the CPU. Arguments as the plain version's."""
+    if prev_pyr[0].device.type == "cuda":
+        pts, status, err = klt_cuda.lk_track(
+            prev_pyr, curr_pyr, points, win, min(levels, len(prev_pyr)), max_iters, eps,
+            point_mask=point_mask, initial_flow=initial_flow,
+        )
+        return FlowResult(pts, status, err)
+    return lucas_kanade_reference(
+        prev_pyr, curr_pyr, points, win=win, levels=levels, max_iters=max_iters, eps=eps,
+        point_mask=point_mask, initial_flow=initial_flow,
+    )
+
+
+def lucas_kanade_reference(
     prev_pyr: Sequence[torch.Tensor],
     curr_pyr: Sequence[torch.Tensor],
     points: torch.Tensor,

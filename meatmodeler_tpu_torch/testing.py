@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["f32", "from_fields", "pair", "seeded_normal", "tt"]
+__all__ = ["blob_texture", "f32", "from_fields", "lk_edge_points", "pair", "seeded_normal", "tt"]
 
 
 def f32(x) -> np.ndarray:
@@ -58,3 +58,36 @@ def from_fields(obj, cls: Optional[type] = None):
             value = from_fields(value, type(f.default))
         values[f.name] = value
     return cls(**values)
+
+
+def blob_texture(h: int, w: int, dx: float = 0.0, dy: float = 0.0, seed: int = 3, blobs: int = 60) -> np.ndarray:
+    """(h, w) float32 texture of Gaussian blobs from ``seed`` whose centres
+    move by (dx, dy): an exact sub-pixel shift with no resampling, for
+    tracking tests. Each blob is summed within 6 sigma of its centre."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w), np.float64)
+    for _ in range(blobs):
+        cy, cx = rng.uniform(20, h - 20), rng.uniform(20, w - 20)
+        sy, sx = rng.uniform(2, 6), rng.uniform(2, 6)
+        amp = rng.uniform(60, 200)
+        y0, y1 = max(0, int(cy + dy - 6 * sy)), min(h, int(cy + dy + 6 * sy) + 2)
+        x0, x1 = max(0, int(cx + dx - 6 * sx)), min(w, int(cx + dx + 6 * sx) + 2)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        img[y0:y1, x0:x1] += amp * np.exp(-(((yy - cy - dy) / sy) ** 2 + ((xx - cx - dx) / sx) ** 2))
+    return np.clip(img, 0, 255).astype(np.float32)
+
+
+def lk_edge_points(h: int, w: int) -> np.ndarray:
+    """(19, 2) float32 (x, y) points of an (h, w) image for Lucas-Kanade's
+    edge cases: five on the border, four just beyond it, seven far outside
+    (up to 1e20) and three with NaN coordinates, in that order."""
+    far = 1e20
+    return np.array(
+        [
+            [0, 0], [w - 1, h - 1], [w - 0.5, h / 2], [0.25, h - 0.25], [w / 2, 0.5],
+            [-3, 50], [w + 5, 60], [100, -4.5], [w / 2, h + 5],
+            [-500, h / 2], [1e6, 40], [w / 3, -1e6], [far, 100], [-far, 100], [100, far], [far, far],
+            [np.nan, 50], [60, np.nan], [np.nan, np.nan],
+        ],
+        np.float32,
+    )

@@ -32,7 +32,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -42,7 +41,7 @@ import numpy as np
 import torch
 
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
-from meatmodeler_tpu_torch.ops import clahe_cuda, color
+from meatmodeler_tpu_torch.ops import clahe_cuda, color, cuda_build
 
 # One H100 SXM's HBM3 rate (NVIDIA's data sheet), bytes per second.
 HBM_BYTES_PER_S = 3.35e12
@@ -169,19 +168,9 @@ def sweep(device) -> None:
                   f"warp {ms['warp'] * 1e3:.3f} us, bound {bound_ms(lut_bytes(shape)) * 1e3:.3f} us")
 
 
-def _compile(source: Path, out: Path, extra=()) -> str:
-    proc = subprocess.run(
-        [clahe_cuda._nvcc(), *clahe_cuda.NVCC_FLAGS, *extra, "-o", str(out), str(source)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}")
-    return proc.stdout + proc.stderr
-
-
 def ptxas() -> None:
     with tempfile.TemporaryDirectory() as tmp:
-        print(_compile(clahe_cuda.SOURCE, Path(tmp) / "lib.so", ("-Xptxas", "-v")))
+        print(cuda_build.compile_source(clahe_cuda.SOURCE, Path(tmp) / "lib.so", ("-Xptxas", "-v")))
 
 
 def _raw_kernels(lib, img: torch.Tensor, tiles=(8, 8)):
@@ -211,7 +200,7 @@ def compare(source: Path, device, scene) -> None:
     """Both libraries' kernels at the path shapes, in turns other, this,
     this, other; each line gives the two means."""
     with tempfile.TemporaryDirectory() as tmp:
-        _compile(source, Path(tmp) / "other.so")
+        cuda_build.compile_source(source, Path(tmp) / "other.so")
         other = ctypes.CDLL(str(Path(tmp) / "other.so"))
         this = clahe_cuda.build()
         p, i = ctypes.c_void_p, ctypes.c_int

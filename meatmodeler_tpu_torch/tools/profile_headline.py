@@ -23,8 +23,8 @@ and then the board-free clip (``markerless_clip``: 120 grey frames,
 
 Each path runs four ways:
 
-  1. cold: the first ``process`` of the process (the CLAHE library is built
-     first if it is missing);
+  1. cold: the first ``process`` of the process (the kernel libraries are
+     built first if they are missing);
   2. warm, ``--warm-runs`` times: e2e seconds (median and quartiles) and fps;
   3. once with ``MEATMODELER_SYNC_STAGES=1``: per-stage seconds that bill
      device work to the stage that queued it, and the peak allocation;
@@ -88,7 +88,7 @@ from meatmodeler_tpu_torch import pipeline
 from meatmodeler_tpu_torch.geometry import projection, ransac, so3, triangulation
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
 from meatmodeler_tpu_torch.odometry import chain_poses
-from meatmodeler_tpu_torch.ops import clahe, clahe_cuda, features, klt
+from meatmodeler_tpu_torch.ops import clahe, clahe_cuda, features, klt, klt_cuda
 from meatmodeler_tpu_torch.parallel import sharded
 from meatmodeler_tpu_torch.parallel.batch import process_batch
 from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
@@ -672,7 +672,7 @@ def main(argv=None) -> int:
         return 2
     config = headline_config()
     report = {"device": torch.cuda.get_device_name(0), "frames": HEADLINE_FRAMES}
-    report["library_prebuilt"] = clahe_cuda.LIBRARY.exists()
+    report["library_prebuilt"] = clahe_cuda.LIBRARY.exists() and klt_cuda.LIBRARY.exists()
 
     if "known" in paths or "detector" in paths or "sharded" in paths:
         t0 = time.perf_counter()

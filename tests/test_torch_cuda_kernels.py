@@ -1,5 +1,6 @@
-"""The hand-written CLAHE CUDA kernels against their plain PyTorch versions,
-on the card. Skipped without CUDA (the kernels have no CPU mode).
+"""The hand-written CUDA kernels (CLAHE, Lucas-Kanade) against their plain
+PyTorch versions, and the paths that run them, on the card. Skipped
+without CUDA (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs where JAX is absent, without the
 suite's conftest:
@@ -157,6 +158,112 @@ def test_detector_path_ops_on_cuda_match_cpu(cuda):
     assert float(diff.median()) <= 1e-4
 
 
+def check_lk(prev, curr, pts, mask, flow, s):
+    """The kernel (one launch) against the plain version on the card:
+    status and NaN patterns equal; the held points (all, or the live ones
+    where the call is seeded with offsets) within eps with the median
+    within 1e-4; errors
+    within 1e-4 where the points agree to 1e-4 (``tools/klt_bench``'s
+    ``held_entries`` and ``lk_agreement`` say why). The dispatch gives
+    bit for bit what the wrapper gives."""
+    from meatmodeler_tpu_torch.ops import klt, klt_cuda
+    from meatmodeler_tpu_torch.tools.klt_bench import held_entries, lk_agreement, lk_kernel
+
+    before = klt_cuda.LAUNCHES["lk_track"]
+    got = klt.lucas_kanade(prev, curr, pts, point_mask=mask, initial_flow=flow, **s)
+    torch.cuda.synchronize()
+    assert klt_cuda.LAUNCHES["lk_track"] == before + 1
+    res, _, _ = lk_kernel(prev, curr, pts, mask, flow, s)
+    ref = klt.lucas_kanade_reference(prev, curr, pts, point_mask=mask, initial_flow=flow, **s)
+    for x, y in zip(got, res):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+    a = lk_agreement(got, ref, held_entries(pts, mask, flow))
+    assert a["status_equal"] and a["nan_equal"], a
+    assert a["max_point"] <= s["eps"] and a["median_point"] <= 1e-4, a
+    assert a["max_error"] <= 1e-4, a
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["scan", "odometry", "two_view"])
+def test_lk_kernel_matches_reference(cuda, case):
+    from meatmodeler_tpu_torch.tools.klt_bench import lk_case
+
+    check_lk(*lk_case(case, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flat", "masked", "scan_edges", "two_view_edges"])
+def test_lk_kernel_edge_cases(cuda, case):
+    """A flat image (G singular everywhere), half the points masked, points
+    on, beyond and far outside the border and NaN points (and a NaN
+    offset)."""
+    from meatmodeler_tpu_torch.tools.klt_bench import lk_case
+
+    prev, curr, pts, mask, flow, s = lk_case(case, cuda)
+    got = check_lk(prev, curr, pts, mask, flow, s)
+    if case == "flat":
+        assert not got.status.any() and torch.equal(got.points, pts)
+    if case.endswith("_edges"):
+        assert not got.status[12:19].any()
+
+
+@pytest.mark.gpu
+def test_lk_kernel_rejects_bad_input(cuda):
+    from meatmodeler_tpu_torch.ops import klt, klt_cuda
+    from meatmodeler_tpu_torch.tools.klt_bench import lk_case
+
+    prev, curr, pts, mask, _, _ = lk_case("scan", cuda)
+    with pytest.raises(ValueError, match="float32"):
+        klt.lucas_kanade([p.double() for p in prev], [p.double() for p in curr], pts, levels=4)
+    with pytest.raises(ValueError, match="windows"):
+        klt.lucas_kanade(prev, curr, pts, win=33)
+    with pytest.raises(ValueError, match="contiguous"):
+        klt.lucas_kanade([p.t() for p in prev], [p.t() for p in curr], pts)
+    with pytest.raises(ValueError, match="shapes differ"):
+        klt.lucas_kanade(prev, curr[1:] + curr[:1], pts)
+    with pytest.raises(ValueError, match="points on"):
+        klt_cuda.lk_track([p.cpu() for p in prev], curr, pts, 21, 4, 10, 0.01)
+    with pytest.raises(ValueError, match="path"):
+        klt_cuda.lk_track(prev, curr, pts, 21, 4, 10, 0.01, path=torch.zeros((len(pts), 4, 9, 2), device=cuda))
+
+
+@pytest.mark.gpu
+def test_keyframe_scan_flags_kernel_match_plain(cuda, monkeypatch):
+    """A rendered clip through the device keyframe scan twice on the card,
+    with the kernel and with the plain version: identical flags, and one
+    kernel launch per scanned frame."""
+    import dataclasses
+
+    from meatmodeler_tpu_torch.config import DEFAULT_CONFIG, KeyframeConfig
+    from meatmodeler_tpu_torch.io import native_ops
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+    from meatmodeler_tpu_torch.ops import klt, klt_cuda
+    from meatmodeler_tpu_torch.pipeline import _make_keyframe_scan
+
+    config = dataclasses.replace(
+        DEFAULT_CONFIG, keyframe=dataclasses.replace(KeyframeConfig(), max_corners=256, threshold=0.02)
+    )
+    frames, _, _ = render_sequence(TurntableScene(image_size=(400, 300), focal=420.0, noise_sigma=1.0), 40, seed=0)
+    greys = tclahe.clahe(torch.from_numpy(native_ops.bgr_to_grey_down(frames, 1)).to(cuda).float())
+
+    def scan():
+        init, scan_chunk = _make_keyframe_scan(config)
+        carry, flags = init(greys[0]), []
+        for i in range(0, 40, 8):
+            carry, f = scan_chunk(carry, greys[i : i + 8], width_scale=1)
+            flags.append(f.cpu())
+        return torch.cat(flags)
+
+    before = klt_cuda.LAUNCHES["lk_track"]
+    with_kernel = scan()
+    assert klt_cuda.LAUNCHES["lk_track"] == before + 40
+    monkeypatch.setattr(klt, "lucas_kanade", klt.lucas_kanade_reference)
+    plain = scan()
+    assert int(with_kernel.sum()) >= 3
+    assert torch.equal(with_kernel, plain)
+
+
 def _two_view_scene(n=300, seed=0):
     """Spread points seen by two cameras (the port's projection), 0.5 px noise."""
     from meatmodeler_tpu_torch.geometry import projection
@@ -309,15 +416,17 @@ def test_odometry_steps_on_cuda_match_cpu(cuda, cpu_draws):
     from meatmodeler_tpu_torch.geometry import so3
     from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
     from meatmodeler_tpu_torch.odometry import chain_poses
-    from meatmodeler_tpu_torch.ops import clahe_cuda
+    from meatmodeler_tpu_torch.ops import clahe_cuda, klt_cuda
 
     scene = TurntableScene(image_size=(400, 300), focal=420.0, noise_sigma=0.5)
     frames, gt, _ = render_sequence(scene, 10, seed=3)
     frames, gt = frames[:4], gt[:4]
     res_c = chain_poses(frames, scene.intrinsics, device="cpu")
     before = dict(clahe_cuda.LAUNCHES)
+    lk_before = klt_cuda.LAUNCHES["lk_track"]
     res_g = chain_poses(frames, scene.intrinsics, device="cuda")
     assert clahe_cuda.LAUNCHES["clahe_lut"] == before["clahe_lut"] + 4
+    assert klt_cuda.LAUNCHES["lk_track"] == lk_before + 3  # one launch per step
     assert np.abs(res_g.num_tracked - res_c.num_tracked).max() <= 2
     assert (res_g.num_tracked[1:] > 50).all()
 
