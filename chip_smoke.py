@@ -20,8 +20,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      and the odometry's (720, 1280), 128 points, win 21, 4 levels, 10
      iterations, and two_view's (540, 960, win 15, one level, seeded at the
      match offset); then a flat image, masked points, and points on, beyond
-     and far outside the border and NaN; then render the headline clip
-     (300 frames, 1080p) on the card;
+     and far outside the border and NaN;
+  3c. hold the relative-pose refinement kernel against its plain version
+     (NaN patterns equal; within 1e-4 on the candidates float32 rounding
+     does not decide, those where the plain version lies within 1e-5 of
+     itself in float64, at least one a call and a quarter of all; the rest
+     differ as any two float32 summation orders do, printed,
+     ``tools/relpose_bench.determined`` says why) on seeded two-view scenes
+     at the callers' shapes: 16 and 8 candidates at 128 points (odometry),
+     16 at 8192 slots with 40% masked and 20% outliers (the marker-free
+     bootstrap), 8 at 4096 with 96% padding (two-view); then starts at
+     rvec 0, 1e-7 and 1e-5, near pi, zero tvec, and an empty mask; then
+     render the headline clip (300 frames, 1080p) on the card;
   4. run ``process`` on the clip with ``headline_config()`` and the
      renderer's board corners twice, with the launch counts reset just
      before; check the
@@ -51,12 +61,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      within the bound and a finite hull volume, and both kernels must have
      launched; its pose and surface accuracy (Umeyama-aligned to the
      renderer's poses) and ``pose_chain`` seconds are printed beside the JAX
-     package's record on this clip; then the automatic fallback, the same
-     clip once through ``detector_config(headline_config())`` with no
+     package's record on this clip; each run's bootstrap launches
+     ``refine_relpose`` exactly twice (its essential candidates and its
+     homography's), and the kernel is compared as in 3c at the first run's
+     two calls and timed at the first; then the automatic fallback, the
+     same clip once through ``detector_config(headline_config())`` with no
      corners: the device hunt must give up (``board_probe_exhausted`` >=
-     ``board_probe_frames``) and the run come out marker-free; last, the
-     kernels at this path's keyframe input (n_kf, 360, 640), compared and
-     timed;
+     ``board_probe_frames``), the run come out marker-free and launch
+     ``refine_relpose`` twice; last, the CLAHE kernels at this path's
+     keyframe input (n_kf, 360, 640), compared and timed;
   7. the multi-video batch, the JAX package's batch row: 8 clips of 60
      frames, 1080p, seeds 100-107, rendered on the card, through
      ``process_batch`` with ``batch_config()`` and no corners, twice (launch
@@ -74,15 +87,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      checks per clip, then the same two through ``process`` one after the
      other; seconds and rmse of both are printed;
   9. odometry: ``chain_poses`` over the board-free clip of phase 6 with the
-     scene's K (launch counts reset just before), one ``lk_track`` launch
-     per step: more than 50 points
+     scene's K (launch counts reset just before), one ``lk_track`` and two
+     ``refine_relpose`` launches per step: more than 50 points
      tracked in every step and a chained-rotation error under 6 degrees
      over the first 10 steps (the JAX package's test bound); the drift over
-     the clip is printed; then ``two_view.reconstruct_two_view`` on two of
-     its frames (launch counts reset just before): one ``lk_track`` launch,
-     at least 50 inliers, finite points; the Lucas-Kanade kernel compared
-     and timed at both paths' own inputs (the odometry's first step, the
-     two-view's matches); then the CLAHE kernels compared
+     the clip is printed; its first 20 steps once more with the plain
+     refinement on the card, and each step's rotation difference against
+     the kernel run printed; then ``two_view.reconstruct_two_view`` on two of
+     its frames (launch counts reset just before): one ``lk_track`` and two
+     ``refine_relpose`` launches, at least 50 inliers, finite points; the
+     Lucas-Kanade and refinement kernels compared and timed at both paths'
+     own inputs (the odometry's first step, the two-view's matches); then
+     the CLAHE kernels compared
      and timed at the odometry's input (one 720x1280 frame) and at a batch
      clip's keyframes; last, the
      command line as a subprocess, ``python3 -m meatmodeler_tpu_torch.cli``
@@ -114,10 +130,12 @@ the share of it reached: for CLAHE the bytes it must move at the card's
 memory rate; for Lucas-Kanade the larger of the bytes its windows read
 and its operations at the card's float32 rate, counted from the
 iterations this run's points ran and where they sampled
-(``tools/klt_bench``). The last two lines are a JSON record of the
-kernels (launches summed over all paths; CLAHE's times, bound and share at
-the known path's keyframes, Lucas-Kanade's at the scan's input) and the
-device line.
+(``tools/klt_bench``); for the refinement its operations on the points in
+the mask at the float32 rate (``tools/relpose_bench``). The last two
+lines are a JSON record of the kernels (launches summed over all paths;
+CLAHE's times, bound and share at the known path's keyframes,
+Lucas-Kanade's at the scan's input, the refinement's at the odometry's
+first step) and the device line.
 Per-stage attribution, device busy share and the e2e spread come from
 ``python3 -m meatmodeler_tpu_torch.tools.profile_headline``.
 """
@@ -138,7 +156,7 @@ import torch
 
 from meatmodeler_tpu_torch import pipeline
 from meatmodeler_tpu_torch.config import SolverConfig
-from meatmodeler_tpu_torch.geometry import projection
+from meatmodeler_tpu_torch.geometry import projection, ransac, ransac_cuda, so3
 from meatmodeler_tpu_torch.io import native_ops
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
@@ -158,6 +176,18 @@ from meatmodeler_tpu_torch.tools.klt_bench import (
     lk_kernel,
     time_lk,
 )
+from meatmodeler_tpu_torch.tools.relpose_bench import (
+    CALLERS as RELPOSE_CALLERS,
+    EDGE_CASES as RELPOSE_EDGES,
+    caller_case,
+    determined,
+    relpose_agreement,
+    relpose_agrees,
+    relpose_case,
+    time_relpose,
+    to_device,
+)
+from meatmodeler_tpu_torch.tools.relpose_bench import describe as describe_relpose
 from meatmodeler_tpu_torch.tools.profile_headline import (
     HEADLINE_FRAMES,
     PP_SEED,
@@ -201,19 +231,24 @@ KERNELS = {
     "clahe_apply": ("meatmodeler_tpu/ops/clahe_pallas.py:208", "meatmodeler_tpu_torch/csrc/clahe.cu"),
     # An XLA fusion (jit of a vmap over points), not a pallas_call.
     "lk_track": ("meatmodeler_tpu/ops/klt.py:131", "meatmodeler_tpu_torch/csrc/klt.cu"),
+    # An XLA program (a fori_loop vmapped over the candidates), not a pallas_call.
+    "refine_relpose": ("meatmodeler_tpu/geometry/ransac.py:372", "meatmodeler_tpu_torch/csrc/relpose.cu"),
 }
 CLAHE = ("clahe_lut", "clahe_apply")
 # Phase 3b's seeded Lucas-Kanade cases (``tools/klt_bench.lk_case``).
 LK_CASES = ("scan", "odometry", "two_view", "flat", "masked", "scan_edges", "two_view_edges")
+RELPOSE_TOL = 1e-4  # on the candidates float32 rounding does not decide
+ODOMETRY_PLAIN_STEPS = 20
 
 
 def reset_counts() -> None:
     clahe_cuda.reset_launches()
     klt_cuda.reset_launches()
+    ransac_cuda.reset_launches()
 
 
 def counts() -> dict:
-    return {**clahe_cuda.LAUNCHES, **klt_cuda.LAUNCHES}
+    return {**clahe_cuda.LAUNCHES, **klt_cuda.LAUNCHES, **ransac_cuda.LAUNCHES}
 
 
 def add_counts(total: dict, launches: dict) -> None:
@@ -254,6 +289,18 @@ def plain_lk():
         yield
     finally:
         klt.lucas_kanade = real
+
+
+@contextlib.contextmanager
+def plain_relpose():
+    """The relative-pose refinement through its plain version on the card,
+    for comparison."""
+    real = ransac.refine_relative_pose
+    ransac.refine_relative_pose = ransac.refine_relative_pose_reference
+    try:
+        yield
+    finally:
+        ransac.refine_relative_pose = real
 
 
 def _gpu_line() -> str:
@@ -360,6 +407,52 @@ def time_lk_at(label, case, timings):
     print("time " + describe(label, timings[label]))
 
 
+def compare_relpose(cases, err):
+    """The refinement kernel against its plain version at each (label,
+    (rvec, tvec, pts1, pts2, mask, K) on the card): ``ransac.
+    refine_relative_pose`` must give bit for bit what one launch of the
+    wrapper gives, and that must agree with the plain version (``tools/
+    relpose_bench.relpose_agreement``, held candidates from the plain
+    version in float32 against float64), and over all ``cases`` at least a
+    quarter of the candidates must be held; raises on disagreement, folds
+    the max held difference into ``err``."""
+    held = total = 0
+    for label, args in cases:
+        got = ransac.refine_relative_pose(*args)
+        once = ransac_cuda.refine_relpose(*args)
+        ref = ransac.refine_relative_pose_reference(*args)
+        ref64 = ransac.refine_relative_pose_reference(*(a.double() if a.is_floating_point() else a for a in args))
+        torch.cuda.synchronize()
+        a = relpose_agreement(got, ref, determined(ref, ref64))
+        print(f"kernel check refine_relpose {label} {args[0].shape[0]} candidates x {args[2].shape[0]} points "
+              f"({int(args[4].sum())} in the mask): {json.dumps(a)}")
+        for x, y in zip(got, once):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"refine_relative_pose and one refine_relpose launch differ at {label}")
+        if not relpose_agrees(a, RELPOSE_TOL):
+            raise AssertionError(f"refine_relpose disagrees with its plain version at {label}")
+        err["refine_relpose"] = max(err["refine_relpose"], a["max_held"])
+        held, total = held + a["held"], total + a["candidates"]
+    if 4 * held < total:
+        raise AssertionError(f"only {held} of {total} refinement candidates were held: the check says too little")
+
+
+def relpose_call_case(call):
+    """A recorded ``ransac.refine_relative_pose`` call as its (rvec, tvec,
+    pts1, pts2, mask, K) on the card, with the default iterations."""
+    bound = inspect.signature(ransac.refine_relative_pose_reference).bind(*call[0], **call[1])
+    bound.apply_defaults()
+    a = bound.arguments
+    if a["iters"] != 15:
+        raise AssertionError(f"a caller asked for {a['iters']} refinement iterations, not 15")
+    return tuple(a[k] for k in ("rvec", "tvec", "pts1", "pts2", "mask", "intrinsics"))
+
+
+def time_relpose_at(label, args, timings):
+    timings[label] = time_relpose(*args)
+    print("time " + describe_relpose(label, timings[label]))
+
+
 def run_path(label, scene, frames, corners, config):
     """One path through ``process`` on the headline clip, twice, with the
     launch counts reset just before and read just after. With the device
@@ -448,7 +541,7 @@ def run_markerless(scene, frames, poses):
         print(f"  point-surface residual median {acc['point_surface_residual_median']:.4f} (JAX package's record "
               f"{JAX_MARKERLESS['point_surface_residual_median']})")
         print(f"  JAX package's record on this clip: {json.dumps(JAX_MARKERLESS)}")
-        print(f"  clahe_cuda.LAUNCHES {clahe_cuda.LAUNCHES}")
+        print(f"  launches so far {counts()}")
         if c.get("markerless") is not True:
             raise AssertionError("the marker-free path did not engage")
         if c["keyframes"] < 3 or len(res.points) < 100:
@@ -462,6 +555,8 @@ def run_markerless(scene, frames, poses):
     launches = counts()
     if min(launches[k] for k in CLAHE) <= 0:
         raise AssertionError(f"a kernel of the markerless path never launched: {launches}")
+    if launches["refine_relpose"] != 4:
+        raise AssertionError(f"the bootstrap did not launch refine_relpose twice a run: {launches}")
     return launches, c
 
 
@@ -483,6 +578,8 @@ def run_fallback(frames):
         raise AssertionError(f"board hunt stopped early: {c.get('board_probe_exhausted')}")
     if not np.isfinite(res.reprojection_rmse):
         raise AssertionError("fallback rmse is not finite")
+    if ransac_cuda.LAUNCHES["refine_relpose"] != 2:
+        raise AssertionError(f"the fallback's bootstrap did not launch refine_relpose twice: {counts()}")
 
 
 def check_clip(res, scene):
@@ -573,7 +670,8 @@ def run_pipelined(scene, clips, corners):
 
 def run_odometry(scene, frames, poses):
     """Phase 9a: ``chain_poses`` over the board-free clip, one ``lk_track``
-    launch per step. Returns its launches."""
+    and two ``refine_relpose`` launches per step. Returns (its launches,
+    its result)."""
     reset_counts()
     t0 = time.perf_counter()
     res = chain_poses(frames, scene.intrinsics, device="cuda")
@@ -594,7 +692,35 @@ def run_odometry(scene, frames, poses):
         raise AssertionError(f"a kernel did not launch for every frame of the odometry: {launches}")
     if launches["lk_track"] != len(frames) - 1:
         raise AssertionError(f"lk_track did not launch once per odometry step: {launches}")
-    return launches
+    if launches["refine_relpose"] != 2 * (len(frames) - 1):
+        raise AssertionError(f"refine_relpose did not launch twice per odometry step: {launches}")
+    return launches, res
+
+
+def odometry_plain(scene, frames, res):
+    """Phase 9a': the first steps of the odometry once more with the plain
+    refinement on the card; prints each step's rotation difference (deg)
+    against the kernel run. The draws are the same (one seeded generator
+    per run), so only the refinement's rounding differs."""
+    before = ransac_cuda.LAUNCHES["refine_relpose"]
+    t0 = time.perf_counter()
+    with plain_relpose():
+        plain = chain_poses(frames[: ODOMETRY_PLAIN_STEPS + 1], scene.intrinsics, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if ransac_cuda.LAUNCHES["refine_relpose"] != before:
+        raise AssertionError("the plain run launched refine_relpose")
+
+    def rot(poses):
+        return so3.exp(torch.from_numpy(np.asarray(poses, np.float64)[:, :3]))
+
+    r_k, r_p = rot(res.poses[: ODOMETRY_PLAIN_STEPS + 1]), rot(plain.poses)
+    cos = (torch.einsum("tij,tij->t", r_k, r_p) - 1.0) / 2.0
+    diff = torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0, 1.0)))[1:]
+    print(f"[odometry] first {ODOMETRY_PLAIN_STEPS} steps with the plain refinement on the card: {wall:.3f} s; "
+          f"rotation difference against the kernel run per step (deg) {[round(float(d), 6) for d in diff]}, max "
+          f"{float(diff.max()):.6f}; inliers per step kernel {res.num_inliers[1:ODOMETRY_PLAIN_STEPS + 1].tolist()} "
+          f"plain {plain.num_inliers[1:].tolist()}")
 
 
 def run_two_view(scene, frames):
@@ -613,6 +739,8 @@ def run_two_view(scene, frames):
         raise AssertionError(f"two-view reconstruction failed: {n_in} inliers")
     if launches["lk_track"] != 1:
         raise AssertionError(f"lk_track did not launch once in reconstruct_two_view: {launches}")
+    if launches["refine_relpose"] != 2:
+        raise AssertionError(f"refine_relpose did not launch twice in reconstruct_two_view: {launches}")
     return launches
 
 
@@ -761,7 +889,7 @@ def main() -> int:
     gpu = _gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {gpu} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    libraries = (clahe_cuda, klt_cuda)
+    libraries = (clahe_cuda, klt_cuda, ransac_cuda)
     for lib in libraries:
         lib.LIBRARY.unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -773,6 +901,9 @@ def main() -> int:
     compare_kernels(dev, seeded_cases(dev), err)
     # Phase 3b: the Lucas-Kanade kernel against its plain version on seeded inputs.
     compare_lk([(c, lk_case(c, dev)) for c in LK_CASES], err)
+    # Phase 3c: the refinement kernel against its plain version on seeded scenes.
+    compare_relpose([(c[0], to_device(caller_case(c[0]), dev)) for c in RELPOSE_CALLERS]
+                    + [(c, to_device(relpose_case(c), dev)) for c in RELPOSE_EDGES], err)
 
     t0 = time.perf_counter()
     scene, frames, corners = headline_clip(dev)
@@ -780,7 +911,7 @@ def main() -> int:
     print(f"rendered {frames.shape} in {time.perf_counter() - t0:.2f} s")
     OUT.mkdir(parents=True, exist_ok=True)
     config = headline_config()
-    timings, lk_timings = {}, {}
+    timings, lk_timings, relpose_timings = {}, {}, {}
 
     # Phase 4: known corners, host pass 1, grey enhance; its BA problem and
     # keyframe descriptors are recorded for phase 10.
@@ -825,8 +956,15 @@ def main() -> int:
     t0 = time.perf_counter()
     mscene, mframes, mposes = markerless_clip(dev)
     print(f"rendered {mframes.shape} in {time.perf_counter() - t0:.2f} s")
-    launches_m, c = run_markerless(mscene, mframes, mposes)
+    with recording(ransac, "refine_relative_pose") as calls:
+        launches_m, c = run_markerless(mscene, mframes, mposes)
     add_counts(launches, launches_m)
+    # The first run's bootstrap: its essential candidates, then its homography's.
+    bootstrap = [relpose_call_case(call) for call in calls[:2]]
+    del calls
+    compare_relpose([("bootstrap essential", bootstrap[0]), ("bootstrap homography", bootstrap[1])], err)
+    time_relpose_at("bootstrap", bootstrap[0], relpose_timings)
+    del bootstrap
     mconfig = markerless_config()
     p2s = mconfig.pass2_downscale
     kf_grey = np.ascontiguousarray(mframes[c["keyframe_indices"]])
@@ -857,16 +995,26 @@ def main() -> int:
     del frames, frames7
 
     # Phase 9: odometry over the board-free clip, two-view, the kernels, the CLI.
-    with recording(klt, "lucas_kanade") as calls:
-        add_counts(launches, run_odometry(mscene, mframes, mposes))
-    odometry_lk = lk_call_case(calls[0])
-    with recording(klt, "lucas_kanade") as calls:
+    with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines:
+        launches_o, odo = run_odometry(mscene, mframes, mposes)
+    add_counts(launches, launches_o)
+    odometry_lk, odometry_refine = lk_call_case(calls[0]), [relpose_call_case(r) for r in refines[:2]]
+    del refines
+    odometry_plain(mscene, mframes, odo)
+    with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines:
         add_counts(launches, run_two_view(mscene, mframes))
     lk_cases = [("odometry step 1", odometry_lk), ("two-view matches", lk_call_case(calls[0]))]
-    del calls
+    two_view_refine = [relpose_call_case(r) for r in refines]
+    del calls, refines
     compare_lk(lk_cases, err)
     for label, case in lk_cases:
         time_lk_at(label, case, lk_timings)
+    compare_relpose([("odometry step 1 essential", odometry_refine[0]),
+                     ("odometry step 1 homography", odometry_refine[1]),
+                     ("two-view essential", two_view_refine[0]), ("two-view homography", two_view_refine[1])], err)
+    time_relpose_at("odometry step 1", odometry_refine[0], relpose_timings)
+    time_relpose_at("two-view", two_view_refine[0], relpose_timings)
+    del odometry_refine, two_view_refine
     frame = torch.from_numpy(np.ascontiguousarray(mframes[:1])).to(dev).float()
     compare_kernels(dev, [("odometry frame", frame, (8, 8)), ("batch-clip keyframes", batch_kf, (8, 8))], err)
     time_at("odometry frame", frame, timings)
@@ -885,6 +1033,8 @@ def main() -> int:
     rows = {name: dict(main[name], bound_by="bytes", at=main["shape"]) for name in CLAHE}
     lk_main = lk_timings["headline scan input"]
     rows["lk_track"] = dict(lk_main, at=[*lk_main["shape"], lk_main["points"]])
+    rp_main = relpose_timings["odometry step 1"]
+    rows["refine_relpose"] = dict(rp_main, at=[rp_main["candidates"], rp_main["points"]])
     record = {
         "kernels": [
             {
@@ -899,7 +1049,8 @@ def main() -> int:
                 "bound_ms": rows[name]["bound_ms"],
                 "bound_by": rows[name]["bound_by"],
                 "share": rows[name]["share"],
-                # No single PyTorch call computes a tile-LUT CLAHE or pyramidal LK.
+                # No single PyTorch call computes a tile-LUT CLAHE, pyramidal
+                # LK or a robust LM refinement.
                 "library_ms": None,
                 "at": rows[name]["at"],
             }

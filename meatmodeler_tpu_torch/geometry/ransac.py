@@ -6,7 +6,10 @@ homography) hypotheses solved at once as batched eigen/SVD problems, all
 scored against all matches in one batched pass, the best picked by
 ``argmax``; the LO-RANSAC relative pose decomposes, refines and re-scores
 its top candidates and the homography's 8 decompositions as one batch each.
-Nothing here reads a value back to the host.
+On the card that refinement (:func:`refine_relative_pose`) is one launch of
+a hand-written CUDA kernel (``ransac_cuda``, ``csrc/relpose.cu``); on the CPU
+it is the plain version, :func:`refine_relative_pose_reference`. Nothing
+here reads a value back to the host.
 
 Every hypothesis draw goes through :func:`sample_subsets`, which draws
 uniformly among the valid entries, with replacement, from an explicit
@@ -27,7 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.func import jacfwd, vmap
 
-from meatmodeler_tpu_torch.geometry import so3
+from meatmodeler_tpu_torch.geometry import ransac_cuda, so3
 from meatmodeler_tpu_torch.geometry.homography import find_homography
 from meatmodeler_tpu_torch.utils.numerics import nanmedian, one_thread_at_a_time
 
@@ -38,6 +41,7 @@ __all__ = [
     "find_essential",
     "recover_pose",
     "refine_relative_pose",
+    "refine_relative_pose_reference",
     "estimate_relative_pose",
     "find_homography_ransac",
 ]
@@ -327,6 +331,28 @@ def _unit(v: torch.Tensor) -> torch.Tensor:
 
 
 def refine_relative_pose(
+    rvec: torch.Tensor,
+    tvec: torch.Tensor,
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    intrinsics: torch.Tensor,
+    iters: int = 15,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`refine_relative_pose_reference` in one launch of the CUDA
+    kernel (``csrc/relpose.cu``) for tensors on the card, the plain version
+    itself for tensors on the CPU. Arguments and results as the plain
+    version's."""
+    if rvec.device.type == "cuda":
+        batch = rvec.shape[:-1]
+        rv, tv = ransac_cuda.refine_relpose(
+            rvec.reshape(-1, 3), tvec.reshape(-1, 3), pts1, pts2, mask, intrinsics, iters
+        )
+        return rv.reshape(batch + (3,)), tv.reshape(batch + (3,))
+    return refine_relative_pose_reference(rvec, tvec, pts1, pts2, mask, intrinsics, iters)
+
+
+def refine_relative_pose_reference(
     rvec: torch.Tensor,
     tvec: torch.Tensor,
     pts1: torch.Tensor,

@@ -25,7 +25,9 @@ Each path runs four ways:
 
   1. cold: the first ``process`` of the process (the kernel libraries are
      built first if they are missing);
-  2. warm, ``--warm-runs`` times: e2e seconds (median and quartiles) and fps;
+  2. warm, ``--warm-runs`` times: e2e seconds (median and quartiles), fps,
+     and each hand-written kernel's launches per run (CLAHE, LK and the
+     relative-pose refinement's counts);
   3. once with ``MEATMODELER_SYNC_STAGES=1``: per-stage seconds that bill
      device work to the stage that queued it, and the peak allocation;
   4. once under ``torch.profiler``: device busy time (the union of kernel,
@@ -85,7 +87,7 @@ from meatmodeler_tpu_torch.config import (
     VolumeConfig,
 )
 from meatmodeler_tpu_torch import pipeline
-from meatmodeler_tpu_torch.geometry import projection, ransac, so3, triangulation
+from meatmodeler_tpu_torch.geometry import projection, ransac, ransac_cuda, so3, triangulation
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe, clahe_cuda, features, klt, klt_cuda
@@ -496,6 +498,16 @@ def _timed_process(frames, corners, config):
     return _timed(lambda: process(frames, config=config, known_corners=corners, device="cuda"))
 
 
+def _reset_launches() -> None:
+    for m in (clahe_cuda, klt_cuda, ransac_cuda):
+        m.reset_launches()
+
+
+def _launches_per_run(runs: int) -> dict:
+    """Each hand-written kernel's launches per run since ``_reset_launches``."""
+    return {k: v / max(runs, 1) for m in (clahe_cuda, klt_cuda, ransac_cuda) for k, v in m.LAUNCHES.items()}
+
+
 def _quartiles(walls) -> dict:
     q = statistics.quantiles(walls, n=4) if len(walls) > 1 else [walls[0]] * 3
     return {"wall_s": walls, "median_s": q[1], "q1_s": q[0], "q3_s": q[2]}
@@ -547,12 +559,13 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_po
     print(f"[{label}] cold: wall {wall} s stages {json.dumps(res.metrics['timings'])}")
 
     walls = []
+    _reset_launches()
     for _ in range(warm_runs):
         wall, res = _timed_process(frames, corners, config)
         walls.append(wall)
     q = _quartiles(walls)
     rep["warm"] = {
-        **q, "fps_at_median": n_frames / q["median_s"],
+        **q, "fps_at_median": n_frames / q["median_s"], "kernel_launches_per_run": _launches_per_run(len(walls)),
         "keyframes": res.metrics["counters"]["keyframes"], "points": len(res.points),
         "rmse_px": res.reprojection_rmse, "stages": res.metrics["timings"],
     }
@@ -562,7 +575,8 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_po
         rep["warm"]["accuracy"] = markerless_accuracy(res, gt_poses, scene)
     print(f"[{label}] warm x{len(walls)}: median {q['median_s']} s (q1 {q['q1_s']}, q3 {q['q3_s']}), "
           f"{n_frames / q['median_s']} fps; keyframes {rep['warm']['keyframes']} points {rep['warm']['points']} "
-          f"rmse {res.reprojection_rmse} {json.dumps({k: v for k, v in rep['warm'].items() if k in ('volume_err', 'accuracy')})}")
+          f"rmse {res.reprojection_rmse} {json.dumps({k: v for k, v in rep['warm'].items() if k in ('volume_err', 'accuracy')})}"
+          f"; kernel launches per run {json.dumps(rep['warm']['kernel_launches_per_run'])}")
 
     torch.cuda.reset_peak_memory_stats()
     os.environ["MEATMODELER_SYNC_STAGES"] = "1"
@@ -611,17 +625,20 @@ def profile_entry(
     rep["cold"] = {"wall_s": wall}
     print(f"[{label}] cold: wall {wall} s")
 
-    walls, base_walls = [], []
+    walls, base_walls, launches = [], [], {}
     for _ in range(warm_runs):
+        _reset_launches()
         wall, out = _timed(run)
         walls.append(wall)
+        for k, v in _launches_per_run(warm_runs).items():
+            launches[k] = launches.get(k, 0.0) + v
         if baseline is not None:
             wall_b, out_b = _timed(baseline)
             base_walls.append(wall_b)
     q = _quartiles(walls)
-    rep["warm"] = {**q, "fps_at_median": n_frames / q["median_s"], **summarize(out)}
+    rep["warm"] = {**q, "fps_at_median": n_frames / q["median_s"], **summarize(out), "kernel_launches_per_run": launches}
     print(f"[{label}] warm x{len(walls)}: median {q['median_s']} s (q1 {q['q1_s']}, q3 {q['q3_s']}), "
-          f"{n_frames / q['median_s']} fps; {json.dumps(summarize(out))}")
+          f"{n_frames / q['median_s']} fps; {json.dumps(summarize(out))}; kernel launches per run {json.dumps(launches)}")
     if baseline is not None:
         qb = _quartiles(base_walls)
         rep["baseline"] = {**qb, **summarize(out_b)}
@@ -672,7 +689,7 @@ def main(argv=None) -> int:
         return 2
     config = headline_config()
     report = {"device": torch.cuda.get_device_name(0), "frames": HEADLINE_FRAMES}
-    report["library_prebuilt"] = clahe_cuda.LIBRARY.exists() and klt_cuda.LIBRARY.exists()
+    report["library_prebuilt"] = all(m.LIBRARY.exists() for m in (clahe_cuda, klt_cuda, ransac_cuda))
 
     if "known" in paths or "detector" in paths or "sharded" in paths:
         t0 = time.perf_counter()

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (CLAHE, Lucas-Kanade) against their plain
-PyTorch versions, and the paths that run them, on the card. Skipped
+"""The hand-written CUDA kernels (CLAHE, Lucas-Kanade, relative-pose
+refinement) against their plain PyTorch versions, and the paths that run them, on the card. Skipped
 without CUDA (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs where JAX is absent, without the
@@ -264,6 +264,60 @@ def test_keyframe_scan_flags_kernel_match_plain(cuda, monkeypatch):
     assert torch.equal(with_kernel, plain)
 
 
+def check_relpose(case, cuda):
+    """The refinement kernel against its plain version at one seeded case
+    (``tools/relpose_bench``): one launch per ``refine_relative_pose``
+    call, NaN patterns equal, and the candidates float32 rounding does not
+    decide (the plain version within 1e-5 of itself in float64) within
+    1e-4; see ``test_torch_relpose_kernel.py`` for why the rest differ."""
+    from meatmodeler_tpu_torch.geometry import ransac, ransac_cuda
+    from meatmodeler_tpu_torch.tools.relpose_bench import determined, relpose_agreement, relpose_agrees, to_device
+
+    args = to_device(case, cuda)
+    before = ransac_cuda.LAUNCHES["refine_relpose"]
+    got = ransac.refine_relative_pose(*args)
+    assert ransac_cuda.LAUNCHES["refine_relpose"] == before + 1
+    ref = ransac.refine_relative_pose_reference(*args)
+    ref64 = ransac.refine_relative_pose_reference(*(a.double() if a.is_floating_point() else a for a in args))
+    torch.cuda.synchronize()
+    a = relpose_agreement(got, ref, determined(ref, ref64))
+    assert relpose_agrees(a, 1e-4), a
+    assert torch.isfinite(torch.linalg.norm(got[1], dim=1)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["odometry", "odometry_h", "bootstrap", "two_view"])
+def test_relpose_kernel_matches_reference(cuda, case):
+    from meatmodeler_tpu_torch.tools.relpose_bench import caller_case
+
+    check_relpose(caller_case(case), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["small_angle", "near_pi", "zero_t", "all_masked"])
+def test_relpose_kernel_edge_cases(cuda, case):
+    from meatmodeler_tpu_torch.tools.relpose_bench import relpose_case
+
+    check_relpose(relpose_case(case), cuda)
+
+
+@pytest.mark.gpu
+def test_relpose_kernel_rejects_bad_input(cuda):
+    """Mistyped, misshapen or mixed-device inputs raise before any launch;
+    no candidates launch nothing."""
+    from meatmodeler_tpu_torch.geometry import ransac_cuda
+    from meatmodeler_tpu_torch.tools.relpose_bench import caller_case, to_device
+
+    args = list(to_device(caller_case("odometry_h"), cuda))
+    before = ransac_cuda.LAUNCHES["refine_relpose"]
+    for i, bad in ((0, args[0].double()), (2, args[2][:, :1]), (4, args[4].to(torch.uint8)), (5, args[5].cpu())):
+        with pytest.raises(ValueError):
+            ransac_cuda.refine_relpose(*args[:i], bad, *args[i + 1:])
+    rv, tv = ransac_cuda.refine_relpose(args[0][:0], args[1][:0], *args[2:])
+    assert rv.shape == (0, 3) and tv.shape == (0, 3)
+    assert ransac_cuda.LAUNCHES["refine_relpose"] == before
+
+
 def _two_view_scene(n=300, seed=0):
     """Spread points seen by two cameras (the port's projection), 0.5 px noise."""
     from meatmodeler_tpu_torch.geometry import projection
@@ -405,15 +459,16 @@ def test_solve_ba_batch_on_cuda_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_odometry_steps_on_cuda_match_cpu(cuda, cpu_draws):
     """Three steps of ``odometry.chain_poses`` on the card (CLAHE through
-    the kernels, LK, LO-RANSAC, triangulation) against the CPU with the
-    same hypotheses: track counts within 2 (LK's eps freeze, see
-    ``test_detector_path_ops_on_cuda_match_cpu``), rotations within 1e-2
+    the kernels, LK, LO-RANSAC with its refinement kernel, triangulation)
+    against the CPU with the same hypotheses: track counts within 2 (LK's
+    eps freeze, see ``test_detector_path_ops_on_cuda_match_cpu``),
+    rotations within 1e-2
     rad and scales within 5e-2 relative. The tracked points differ at the
     eps level, which moves the LO-RANSAC's refined winner within the
     estimator's own noise (6.9e-3 rad on a 17-degree step, measured on an
     H100); both runs also follow the renderer's orbit within the JAX
     package's test bound, 6 degrees."""
-    from meatmodeler_tpu_torch.geometry import so3
+    from meatmodeler_tpu_torch.geometry import ransac_cuda, so3
     from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
     from meatmodeler_tpu_torch.odometry import chain_poses
     from meatmodeler_tpu_torch.ops import clahe_cuda, klt_cuda
@@ -424,9 +479,12 @@ def test_odometry_steps_on_cuda_match_cpu(cuda, cpu_draws):
     res_c = chain_poses(frames, scene.intrinsics, device="cpu")
     before = dict(clahe_cuda.LAUNCHES)
     lk_before = klt_cuda.LAUNCHES["lk_track"]
+    refine_before = ransac_cuda.LAUNCHES["refine_relpose"]
     res_g = chain_poses(frames, scene.intrinsics, device="cuda")
     assert clahe_cuda.LAUNCHES["clahe_lut"] == before["clahe_lut"] + 4
     assert klt_cuda.LAUNCHES["lk_track"] == lk_before + 3  # one launch per step
+    # Two per step: the essential candidates and the homography's.
+    assert ransac_cuda.LAUNCHES["refine_relpose"] == refine_before + 6
     assert np.abs(res_g.num_tracked - res_c.num_tracked).max() <= 2
     assert (res_g.num_tracked[1:] > 50).all()
 
