@@ -30,19 +30,38 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      at the callers' shapes: 16 and 8 candidates at 128 points (odometry),
      16 at 8192 slots with 40% masked and 20% outliers (the marker-free
      bootstrap), 8 at 4096 with 96% padding (two-view); then starts at
-     rvec 0, 1e-7 and 1e-5, near pi, zero tvec, and an empty mask; then
-     render the headline clip (300 frames, 1080p) on the card;
+     rvec 0, 1e-7 and 1e-5, near pi, zero tvec, and an empty mask;
+  3d. hold the board geometry's three kernels against their plain versions
+     on seeded boards and BA problems (``tools/geometry_bench``), float32
+     and float64: the BA Jacobians elementwise within 1e-5 (float64 1e-12)
+     of max(1, |J|) of each observation's block at the known path's
+     pose-only and global problems, 8 lanes, and rvec 0, 1e-7, 1e-3 and
+     near pi; PnP poses within 1e-4 on the starts float32 rounding does
+     not decide (all in float64); the calibration LM's K and rms within
+     1e-4 relative and poses within 1e-4 (float64, and float32 where it does
+     not decide); NaN patterns equal everywhere; then render the headline
+     clip (300 frames, 1080p) on the card;
   4. run ``process`` on the clip with ``headline_config()`` and the
      renderer's board corners twice, with the launch counts reset just
      before; check the
-     repo's accuracy bounds and that every kernel ran on this path; then
-     compare the kernels once more at the path's own CLAHE input (all
-     keyframes, grey at 540x960) and time them there;
+     repo's accuracy bounds and that every kernel ran on this path, the
+     geometry's as the design gives: ``calib_lm`` twice per ``calibrate``,
+     ``pnp_refine`` once per ``solve_pnp_batch``, ``obs_jacobians`` once
+     per LM iteration (half the normal-equation solves); then compare the
+     kernels once more at the path's own CLAHE input (all keyframes, grey
+     at 540x960) and time them there, and the geometry kernels at the
+     calls the first run made (both LM runs, both PnP calls, the pose-only
+     and the global BA's first Jacobians); then the clip once more with the
+     geometry's plain versions on the card: its ``calibration_rms_px`` and
+     ``pose_ba_rmse_px`` within 1e-3 of the kernel run's, no geometry
+     kernel launched;
   5. the board-finding default path: the same clip through ``process`` with
      ``detector_config(headline_config())`` (device pass 1, ``bgr_lab``
      enhance, device chessboard detector) and NO known corners, twice, with
-     the launch counts reset just before; the same checks, and exactly one
-     ``lk_track`` launch per frame the keyframe scan took; then the clip
+     the launch counts reset just before; the same checks, exactly one
+     ``lk_track`` launch per frame the keyframe scan took, and the
+     geometry kernels' counts, their comparisons at the first run's calls
+     and the plain-geometry run as in 4; then the clip
      once more with the plain Lucas-Kanade in place of the kernel: its scan
      flags and keyframe indices must be the kernel runs'; then the
      Lucas-Kanade kernel compared as in 3b at the scan's first call between
@@ -61,22 +80,30 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      within the bound and a finite hull volume, and both kernels must have
      launched; its pose and surface accuracy (Umeyama-aligned to the
      renderer's poses) and ``pose_chain`` seconds are printed beside the JAX
-     package's record on this clip; each run's bootstrap launches
+     package's record on this clip; ``obs_jacobians`` launches once per LM
+     iteration of its pose-only refinements and in-chain BA, and neither
+     ``calib_lm`` nor ``pnp_refine`` runs; the Jacobian kernel is compared
+     as in 3d at the first run's first pose-only refinement and first
+     in-chain BA; each run's bootstrap launches
      ``refine_relpose`` exactly twice (its essential candidates and its
      homography's), and the kernel is compared as in 3c at the first run's
      two calls and timed at the first; then the automatic fallback, the
      same clip once through ``detector_config(headline_config())`` with no
      corners: the device hunt must give up (``board_probe_exhausted`` >=
      ``board_probe_frames``), the run come out marker-free and launch
-     ``refine_relpose`` twice; last, the CLAHE kernels at this path's
+     ``refine_relpose`` twice, the Jacobian kernel compared at its chain's
+     calls as before; last, the CLAHE kernels at this path's
      keyframe input (n_kf, 360, 640), compared and timed;
   7. the multi-video batch, the JAX package's batch row: 8 clips of 60
      frames, 1080p, seeds 100-107, rendered on the card, through
      ``process_batch`` with ``batch_config()`` and no corners, twice (launch
      counts reset just before), the second time with ``mesh=make_mesh()``
      over every visible GPU; every clip must take the batch prepass and
-     meet the rmse and volume bounds, each kernel must launch once per
-     clip, and the mesh run's BA problems, solved in float64 with and
+     meet the rmse and volume bounds, each CLAHE kernel must launch once
+     per clip, the geometry kernels as in 4 (counted, then compared at the
+     first two LM runs and PnP calls and at the first Jacobians of the
+     pose-only BA and of the lanes, without and with the mesh), and the mesh
+     run's BA problems, solved in float64 with and
      without the mesh, must take the same iterations and rmse (rtol 1e-4;
      the whole runs' difference is printed);
      per-clip rmse and volume error are printed beside the JAX package's
@@ -84,7 +111,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   8. the pipelined schedule: the headline clip and a seed-7 render (300
      frames each, with their corners) through ``process_batch_pipelined``
      with ``headline_config()`` (launch counts reset just before), the same
-     checks per clip, then the same two through ``process`` one after the
+     checks per clip, the geometry kernels counted and compared at its calls
+     as in 4, then the same two through ``process`` one after the
      other; seconds and rmse of both are printed;
   9. odometry: ``chain_poses`` over the board-free clip of phase 6 with the
      scene's K (launch counts reset just before), one ``lk_track`` and two
@@ -100,8 +128,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      own inputs (the odometry's first step, the two-view's matches); then
      the CLAHE kernels compared
      and timed at the odometry's input (one 720x1280 frame) and at a batch
-     clip's keyframes; last, the
-     command line as a subprocess, ``python3 -m meatmodeler_tpu_torch.cli``
+     clip's keyframes (none of phase 9's paths runs a board geometry
+     kernel, and none launches); last, the command line as a subprocess, ``python3 -m meatmodeler_tpu_torch.cli``
      on one batch clip saved as ``.npy`` with ``--detector device --json``,
      then on two with ``--schedule mesh``: exit 0 and the JSON payload's keys;
  10. the mesh (``parallel.sharded``), first on four virtual shards of
@@ -113,7 +141,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      rmse (rtol 1e-4), its parameter differences printed beside the
      unsharded solve's own under a permutation of its observations (in
      float32 the known path's problem moves further than those bounds under
-     any change of summation order), both timed; (c)
+     any change of summation order), both timed, and the Jacobian kernel
+     compared as in 3d at each problem's first shard call; (c)
      ``match_descriptors_tp`` over ``model`` on the known path's first
      keyframe pair (4096 x 256-bit descriptors, recorded in phase 4) against
      ``match_descriptors(cross_check=False)``: the same good mask and
@@ -135,7 +164,9 @@ the mask at the float32 rate (``tools/relpose_bench``). The last two
 lines are a JSON record of the kernels (launches summed over all paths;
 CLAHE's times, bound and share at the known path's keyframes,
 Lucas-Kanade's at the scan's input, the refinement's at the odometry's
-first step) and the device line.
+first step, the geometry kernels' at the known path's own calls: its first
+calibration LM run, its pose stage's PnP, its global BA's first Jacobians,
+bounds from ``tools/geometry_bench``'s counts) and the device line.
 Per-stage attribution, device busy share and the e2e spread come from
 ``python3 -m meatmodeler_tpu_torch.tools.profile_headline``.
 """
@@ -147,6 +178,7 @@ import inspect
 import json
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -156,16 +188,17 @@ import torch
 
 from meatmodeler_tpu_torch import pipeline
 from meatmodeler_tpu_torch.config import SolverConfig
-from meatmodeler_tpu_torch.geometry import projection, ransac, ransac_cuda, so3
+from meatmodeler_tpu_torch.geometry import calibration, calibration_cuda, pnp, pnp_cuda, projection, ransac, ransac_cuda, so3
 from meatmodeler_tpu_torch.io import native_ops
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
-from meatmodeler_tpu_torch.ops import clahe_cuda, color, klt, klt_cuda, matching
+from meatmodeler_tpu_torch.ops import clahe_cuda, color, cuda_build, klt, klt_cuda, matching
 from meatmodeler_tpu_torch.parallel import sharded
 from meatmodeler_tpu_torch.parallel.batch import process_batch
 from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
 from meatmodeler_tpu_torch.pipeline import process
-from meatmodeler_tpu_torch.solvers import bundle_adjust
+from meatmodeler_tpu_torch.solvers import bundle_adjust, bundle_adjust_cuda
+from meatmodeler_tpu_torch.tools import geometry_bench as gb
 from meatmodeler_tpu_torch.tools.clahe_bench import time_kernels
 from meatmodeler_tpu_torch.tools.klt_bench import (
     describe,
@@ -233,7 +266,27 @@ KERNELS = {
     "lk_track": ("meatmodeler_tpu/ops/klt.py:131", "meatmodeler_tpu_torch/csrc/klt.cu"),
     # An XLA program (a fori_loop vmapped over the candidates), not a pallas_call.
     "refine_relpose": ("meatmodeler_tpu/geometry/ransac.py:372", "meatmodeler_tpu_torch/csrc/relpose.cu"),
+    # XLA programs around jax.jacfwd (a vmap over observations; a fori_loop
+    # vmapped over frames; a while_loop), not pallas_calls.
+    "obs_jacobians": ("meatmodeler_tpu/solvers/bundle_adjust.py:94", "meatmodeler_tpu_torch/csrc/ba_jac.cu"),
+    "pnp_refine": ("meatmodeler_tpu/geometry/pnp.py:108", "meatmodeler_tpu_torch/csrc/pnp.cu"),
+    "calib_lm": ("meatmodeler_tpu/geometry/calibration.py:158", "meatmodeler_tpu_torch/csrc/calib.cu"),
 }
+GEOMETRY = ("obs_jacobians", "pnp_refine", "calib_lm")
+# What each geometry kernel's launches are counted against: the calls of
+# these functions in the same window.
+GEOMETRY_CALLS = ((calibration, "calibrate"), (pnp, "solve_pnp_batch"), (bundle_adjust, "_solve_normal_equations"),
+                  (bundle_adjust, "_solve_normal_equations_batch"))
+# The BA callers at whose first Jacobians each path holds the kernel:
+# the board paths' pose-only BA and global BA, the batch's pose-only BA and
+# its lanes (without and with a mesh), the marker-free chain's pose-only
+# refinements and in-chain BA, the point-sharded solve's shards.
+OBS_JACOBIANS = (bundle_adjust_cuda, "obs_jacobians")
+BOARD_BA = ((bundle_adjust, "adjust_pose"), (bundle_adjust, "adjust_points"))
+BATCH_BA = ((bundle_adjust, "adjust_pose"), (bundle_adjust, "solve_ba_batch"), (sharded, "solve_ba_batch"))
+CHAIN_BA = ((bundle_adjust, "pose_only_refine"), (bundle_adjust, "adjust_points"))
+SHARDED_BA = ((sharded, "solve_ba_point_sharded"),)
+GEOMETRY_RMSE_RTOL = 1e-3  # a path's calibration and pose-BA rms, kernels against plain versions
 CLAHE = ("clahe_lut", "clahe_apply")
 # Phase 3b's seeded Lucas-Kanade cases (``tools/klt_bench.lk_case``).
 LK_CASES = ("scan", "odometry", "two_view", "flat", "masked", "scan_edges", "two_view_edges")
@@ -241,14 +294,95 @@ RELPOSE_TOL = 1e-4  # on the candidates float32 rounding does not decide
 ODOMETRY_PLAIN_STEPS = 20
 
 
+LIBRARIES = (clahe_cuda, klt_cuda, ransac_cuda, bundle_adjust_cuda, pnp_cuda, calibration_cuda)
+
+
 def reset_counts() -> None:
-    clahe_cuda.reset_launches()
-    klt_cuda.reset_launches()
-    ransac_cuda.reset_launches()
+    for lib in LIBRARIES:
+        lib.reset_launches()
 
 
 def counts() -> dict:
-    return {**clahe_cuda.LAUNCHES, **klt_cuda.LAUNCHES, **ransac_cuda.LAUNCHES}
+    return {k: v for lib in LIBRARIES for k, v in lib.LAUNCHES.items()}
+
+
+@contextlib.contextmanager
+def geometry_counts():
+    """Within the block, the calls of each of ``GEOMETRY_CALLS`` (from any
+    thread), one entry a call; yields {name: list}."""
+    with contextlib.ExitStack() as stack:
+        yield {name: stack.enter_context(recording(module, name, keep=False)) for module, name in GEOMETRY_CALLS}
+
+
+@contextlib.contextmanager
+def first_calls_within(target, *callers):
+    """Within the block, the (args, kwargs) of the first call of ``target``
+    ((module, name)) that each of ``callers`` ((module, name), ...) makes,
+    on whichever host thread it runs, as {"module.name" of the caller:
+    (args, kwargs)}."""
+    first, local = {}, threading.local()
+    module, name = target
+    real = getattr(module, name)
+
+    def call(*args, **kwargs):
+        inside = getattr(local, "inside", None)
+        if inside and inside[-1] not in first:
+            first[inside[-1]] = (args, kwargs)
+        return real(*args, **kwargs)
+
+    def within(caller, key):
+        def run(*args, **kwargs):
+            local.__dict__.setdefault("inside", []).append(key)
+            try:
+                return caller(*args, **kwargs)
+            finally:
+                local.inside.pop()
+
+        return run
+
+    patches = [(module, name, real, call)]
+    for m, n in callers:
+        patches.append((m, n, getattr(m, n), within(getattr(m, n), f"{m.__name__.rsplit('.', 1)[-1]}.{n}")))
+    for m, n, _, fn in patches:
+        setattr(m, n, fn)
+    try:
+        yield first
+    finally:
+        for m, n, orig, _ in reversed(patches):
+            setattr(m, n, orig)
+
+
+def check_geometry(label, launches, calls, board: bool, chain: bool = True) -> None:
+    """The geometry kernels' launches against the design: ``calib_lm`` twice
+    per ``calibrate``, ``pnp_refine`` once per ``solve_pnp_batch``,
+    ``obs_jacobians`` once per LM iteration (two normal-equation solves an
+    iteration); on a board path all three ran, on the marker-free chain
+    (``chain``) the Jacobians did, elsewhere none. ``calls`` is
+    ``geometry_counts``'."""
+    n = {k: len(v) for k, v in calls.items()}
+    solves = n["_solve_normal_equations"] + n["_solve_normal_equations_batch"]
+    print(f"[{label}] geometry launches {({k: launches[k] for k in GEOMETRY})} for {n['calibrate']} calibrate, "
+          f"{n['solve_pnp_batch']} solve_pnp_batch, {solves} normal-equation solves")
+    if launches["calib_lm"] != 2 * n["calibrate"] or launches["pnp_refine"] != n["solve_pnp_batch"]:
+        raise AssertionError(f"calib_lm or pnp_refine did not launch as the design gives on the {label} path")
+    if 2 * launches["obs_jacobians"] != solves:
+        raise AssertionError(f"obs_jacobians did not launch once per LM iteration on the {label} path")
+    if board and min(launches[k] for k in GEOMETRY) <= 0:
+        raise AssertionError(f"a geometry kernel of the {label} path never launched: {launches}")
+    if not board and (launches["calib_lm"] or launches["pnp_refine"] or bool(launches["obs_jacobians"]) != chain):
+        raise AssertionError(f"the geometry kernels of the {label} path launched against the design: {launches}")
+
+
+@contextlib.contextmanager
+def plain_geometry():
+    """The board geometry's dispatch points on their plain versions on the
+    card, for comparison."""
+    real = cuda_build.on_card
+    cuda_build.on_card = lambda t: False
+    try:
+        yield
+    finally:
+        cuda_build.on_card = real
 
 
 def add_counts(total: dict, launches: dict) -> None:
@@ -453,21 +587,211 @@ def time_relpose_at(label, args, timings):
     print("time " + describe_relpose(label, timings[label]))
 
 
-def run_path(label, scene, frames, corners, config):
+def _f64(args):
+    return tuple(a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in args)
+
+
+def compare_obs_jacobians(label, args, err):
+    """The BA Jacobian kernel against its plain version at one call's
+    (cam, pts, K, fidx, pidx, mask, weight): ``_obs_jacobians`` must give bit
+    for bit what one launch of the wrapper gives, and that must lie within
+    1e-5 (float64: 1e-12) of the plain version relative to max(1, |J|) of
+    each observation's block (``geometry_bench.jacobian_agreement``)."""
+    cam, pts, k, fidx, pidx, mask, weight = args
+    got = bundle_adjust._obs_jacobians(cam, pts, k, None, fidx, pidx, mask, weight)
+    once = bundle_adjust_cuda.obs_jacobians(*args)
+    ref = gb.ba_plain(*args)
+    torch.cuda.synchronize()
+    a = gb.jacobian_agreement(got, ref)
+    tol = gb.JAC_TOL if cam.dtype == torch.float32 else 1e-12
+    print(f"kernel check obs_jacobians {label} {str(cam.dtype)[6:]} {tuple(cam.shape)} cameras, {tuple(pts.shape)} "
+          f"points, {tuple(fidx.shape)} observations: {json.dumps(a)}")
+    for x, y in zip(got, once):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"_obs_jacobians and one obs_jacobians launch differ at {label}")
+    if not gb.jacobians_agree(a, tol):
+        raise AssertionError(f"obs_jacobians disagrees with its plain version at {label}")
+    if cam.dtype == torch.float32:
+        err["obs_jacobians"] = max(err["obs_jacobians"], a["max_rel"])
+
+
+def compare_pnp(label, args, err):
+    """The PnP kernel against its plain version at one call's (starts (T, F,
+    6), board, pixels, K, iterations, damping): poses within 1e-4 on the
+    starts whose plain float32 result lies within 1e-5 of float64 (all in
+    float64), NaN patterns equal everywhere, the rest printed."""
+    got = pnp_cuda.pnp_refine(*args)
+    ref = gb.pnp_plain(*args)
+    if args[0].dtype == torch.float32:
+        held = gb.pnp_determined(ref[0], gb.pnp_plain(*_f64(args))[0])
+    else:
+        held = torch.ones(ref[0].shape[:2], dtype=torch.bool, device=ref[0].device)
+    torch.cuda.synchronize()
+    a = gb.pnp_agreement(got, ref, held)
+    print(f"kernel check pnp_refine {label} {str(args[0].dtype)[6:]} {tuple(args[0].shape[:2])} starts x "
+          f"{args[1].shape[0]} points: {json.dumps(a)}")
+    if not gb.pnp_agrees(a):
+        raise AssertionError(f"pnp_refine disagrees with its plain version at {label}")
+    if args[0].dtype == torch.float32:
+        err["pnp_refine"] = max(err["pnp_refine"], a["max_held"])
+
+
+def compare_calib(label, args, err):
+    """The calibration LM kernel against its plain version at one
+    ``run_lm`` call's arguments, in float64 (K and rms within 1e-4
+    relative, distortion and poses within 1e-4) and, where the plain
+    float32 run lies within 1e-5 of float64, in float32 the same; NaN
+    patterns equal everywhere, the gap printed. Returns the kernel's
+    float32 iterations."""
+    theta0, img = args[0], args[1]
+    n_intr = theta0.shape[0] - 6 * img.shape[0]
+    mask = args[8]
+    n_fp = (1 if args[7] else 2) + (0 if args[6] else 2)
+    points = int(img.shape[0] if mask is None else mask.sum()) * img.shape[1]
+    ref32, ref64 = calibration.run_lm_reference(*args), calibration.run_lm_reference(*_f64(args))
+    got32, got64 = calibration_cuda.calib_lm(*args), calibration_cuda.calib_lm(*_f64(args))
+    torch.cuda.synchronize()
+    a64 = gb.calib_agreement(got64, ref64, n_intr, n_fp, points, True)
+    a32 = gb.calib_agreement(got32, ref32, n_intr, n_fp, points, gb.calib_determined(ref32, ref64))
+    print(f"kernel check calib_lm {label} {tuple(img.shape)} n_intr {n_intr}: float64 {json.dumps(a64)}; float32 "
+          f"{json.dumps(a32)} (iterations kernel {int(got32[2])}); K kernel / plain / float64 "
+          f"{got32[0][:n_intr].tolist()} / {ref32[0][:n_intr].tolist()} / {ref64[0][:n_intr].tolist()}")
+    if not (gb.calib_agrees(a64) and gb.calib_agrees(a32)):
+        raise AssertionError(f"calib_lm disagrees with its plain version at {label}")
+    err["calib_lm"] = max(err["calib_lm"], a32["k_rel"] if a32["held"] else 0.0)
+    return int(got32[2])
+
+
+def compare_geometry_seeded(dev, err):
+    """Phase 3d: the three geometry kernels on seeded boards and BA problems."""
+    for dtype in (torch.float32, torch.float64):
+        for name in ("ba_pose", "ba_global", "ba_lanes", *gb.BA_EDGES):
+            compare_obs_jacobians(f"seeded {name}", tuple(gb.ba_case(name, dev, dtype)), err)
+        compare_pnp("seeded known-path shape", gb.pnp_args(gb.pnp_case(), dev, dtype), err)
+    for name in ("calibrate", "calibrate_dist5"):
+        compare_calib(f"seeded {name}", gb.lm_args(gb.calib_case(name), dev), err)
+
+
+def call_args(fn, call):
+    """A recorded call of ``fn`` as its positional arguments, defaults
+    filled in."""
+    bound = inspect.signature(fn).bind(*call[0], **call[1])
+    bound.apply_defaults()
+    return tuple(bound.arguments.values())
+
+
+def compare_first_jacobians(label, callers, first, err):
+    """The BA Jacobian kernel at the first call each of ``callers`` made
+    (``first``, from ``first_calls_within``); raises if one made none.
+    Returns {"module.name": the call's arguments}."""
+    keys = [f"{m.__name__.rsplit('.', 1)[-1]}.{n}" for m, n in callers]
+    missing = [k for k in keys if k not in first]
+    if missing:
+        raise AssertionError(f"no obs_jacobians call within {missing} on the {label} path")
+    bas = {k: call_args(bundle_adjust_cuda.obs_jacobians, first[k]) for k in keys}
+    for k, args in bas.items():
+        compare_obs_jacobians(f"{label} {k}'s first", args, err)
+    return bas
+
+
+def geometry_at_path(label, calib_calls, pnp_calls, ba_first, ba_callers, err, timings=None):
+    """The geometry kernels compared at a path's own calls: its first two
+    calibration LM runs and PnP calls (on one host thread: one calibrate's
+    two runs, its rescue pass and the pose stage; with two, possibly two
+    clips'), and the first Jacobians of each of ``ba_callers``
+    (``compare_first_jacobians``). With ``timings``, times them at the first
+    LM run, the second PnP call and the first Jacobians of the pose-only
+    and the global BA."""
+    calib = [call_args(calibration_cuda.calib_lm, c) for c in calib_calls[:2]]
+    pnps = [call_args(pnp_cuda.pnp_refine, c) for c in pnp_calls[:2]]
+    if len(calib) < 2 or len(pnps) < 2:
+        raise AssertionError(f"the {label} path made {len(calib)} calib_lm and {len(pnps)} pnp_refine calls, not 2")
+    for i, args in enumerate(calib):
+        compare_calib(f"{label} calib_lm call {i + 1}", args, err)
+    for i, args in enumerate(pnps):
+        compare_pnp(f"{label} pnp_refine call {i + 1}", args, err)
+    bas = compare_first_jacobians(label, ba_callers, ba_first, err)
+    if timings is None:
+        return
+    rows = {
+        "calib_lm": gb.time_calib(*calib[0]),
+        "pnp_refine": gb.time_pnp(*pnps[1]),
+        "obs_jacobians": gb.time_ba(*bas["bundle_adjust.adjust_points"]),
+        "obs_jacobians pose-only": gb.time_ba(*bas["bundle_adjust.adjust_pose"]),
+    }
+    for name, r in rows.items():
+        print("time " + gb.describe(name, label, r))
+    timings[label] = rows
+
+
+@contextlib.contextmanager
+def geometry_recorded(ba_callers):
+    """Within the block, the geometry kernels' calls, recorded: yields
+    (calib_lm calls, pnp_refine calls, first Jacobians within each of
+    ``ba_callers``, ``geometry_counts``')."""
+    with recording(calibration_cuda, "calib_lm") as calib_calls, recording(pnp_cuda, "pnp_refine") as pnp_calls, \
+            first_calls_within(OBS_JACOBIANS, *ba_callers) as ba_first, geometry_counts() as calls:
+        yield calib_calls, pnp_calls, ba_first, calls
+
+
+def run_plain_geometry(label, scene, frames, corners, config, c):
+    """The clip once more with the geometry's plain versions on the card:
+    the bounds hold, no geometry kernel launches, and its calibration and
+    pose-BA rms lie within 1e-3 of the kernel run's (counters ``c``)."""
+    before = {k: counts()[k] for k in GEOMETRY}
+    with plain_geometry():
+        t0 = time.perf_counter()
+        res = process(frames, config=config, known_corners=corners, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    p = res.metrics["counters"]
+    print(f"[{label}] plain geometry on the card: wall {wall:.3f} s, stages "
+          f"{json.dumps({k: round(res.metrics['timings'][k], 4) for k in ('calibration', 'pose_estimation', 'pose_ba')})}"
+          f"; calibration_rms_px {p['calibration_rms_px']:.6f} (kernels {c['calibration_rms_px']:.6f}), "
+          f"pose_ba_rmse_px {p['pose_ba_rmse_px']:.6f} (kernels {c['pose_ba_rmse_px']:.6f}), rmse "
+          f"{res.reprojection_rmse:.4f}")
+    check_clip(res, scene)
+    if {k: counts()[k] for k in GEOMETRY} != before:
+        raise AssertionError(f"the plain-geometry run launched a geometry kernel: {counts()}")
+    for name in ("calibration_rms_px", "pose_ba_rmse_px"):
+        if not abs(p[name] - c[name]) <= GEOMETRY_RMSE_RTOL * abs(p[name]):
+            raise AssertionError(f"{name} with the kernels differs from the plain versions' on the {label} path")
+
+
+def run_path(label, scene, frames, corners, config, err, timings=None):
     """One path through ``process`` on the headline clip, twice, with the
     launch counts reset just before and read just after. With the device
     pass 1 the keyframe scan must launch ``lk_track`` exactly once per
-    frame it takes. Returns (launches, counters of the last run, that run's
-    scan flags or None)."""
+    frame it takes. Then the geometry kernels at the first run's calls
+    (``geometry_at_path``). Returns (launches, counters of the last run,
+    that run's scan flags or None)."""
     reset_counts()
-    scanned = 0
+    with geometry_recorded(BOARD_BA) as (calib_calls, pnp_calls, ba_first, calls):
+        c, records = _run_twice(label, scene, frames, corners, config)
+    scanned = sum(len(f) for record in records for f in record)
+    launches = counts()
+    if min(launches[k] for k in CLAHE) <= 0:
+        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
+    check_geometry(label, launches, calls, board=True)
+    if config.pass1_backend == "device":
+        print(f"[{label}] lk_track launches {launches['lk_track']} for {scanned} frames scanned in two runs")
+        if scanned == 0 or launches["lk_track"] != scanned:
+            raise AssertionError(f"the keyframe scan did not launch lk_track once per frame: {launches}, {scanned}")
+    geometry_at_path(f"{label} path", calib_calls, pnp_calls, ba_first, BOARD_BA, err, timings)
+    return launches, c, (torch.cat(records[-1]).cpu() if records[-1] else None)
+
+
+def _run_twice(label, scene, frames, corners, config):
+    """``run_path``'s two runs, each held to the repo's bounds; returns the
+    last run's counters and each run's recorded scan flags."""
+    records = []
     for run in range(2):
         with scan_recorder() as record:
             t0 = time.perf_counter()
             res = process(frames, path=str(OUT / f"{label}{run}"), config=config, known_corners=corners, device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        scanned += sum(len(f) for f in record)
+        records.append(record)
         c = res.metrics["counters"]
         vol_err = (res.volume - scene.volume) / scene.volume
         low = res.volume_confidence["low_confidence"]
@@ -487,14 +811,7 @@ def run_path(label, scene, frames, corners, config):
             raise AssertionError("non-finite or misshapen cloud")
         if not low and not abs(vol_err) <= VOLUME_ERR_MAX:
             raise AssertionError(f"hull volume error {vol_err} outside {VOLUME_ERR_MAX}")
-    launches = counts()
-    if min(launches[k] for k in CLAHE) <= 0:
-        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
-    if config.pass1_backend == "device":
-        print(f"[{label}] lk_track launches {launches['lk_track']} for {scanned} frames scanned in two runs")
-        if scanned == 0 or launches["lk_track"] != scanned:
-            raise AssertionError(f"the keyframe scan did not launch lk_track once per frame: {launches}, {scanned}")
-    return launches, c, (torch.cat(record).cpu() if record else None)
+    return c, records
 
 
 def check_scan_plain(frames, config, flags, kf_indices):
@@ -518,11 +835,28 @@ def check_scan_plain(frames, config, flags, kf_indices):
         raise AssertionError("the scan's keyframes with lk_track differ from the plain version's")
 
 
-def run_markerless(scene, frames, poses):
+def run_markerless(scene, frames, poses, err):
     """Phase 6's two ``markerless_config()`` runs, with the launch counts
-    reset just before and read just after. Returns (launches, counters)."""
+    reset just before and read just after, the geometry's as the design
+    gives; the BA Jacobian kernel at the first pose-only refinement and the
+    first in-chain BA. Returns (launches, counters)."""
     config = markerless_config()
     reset_counts()
+    with first_calls_within(OBS_JACOBIANS, *CHAIN_BA) as ba_first, geometry_counts() as calls:
+        c = _run_markerless_twice(scene, frames, poses, config)
+    launches = counts()
+    if min(launches[k] for k in CLAHE) <= 0:
+        raise AssertionError(f"a kernel of the markerless path never launched: {launches}")
+    if launches["refine_relpose"] != 4:
+        raise AssertionError(f"the bootstrap did not launch refine_relpose twice a run: {launches}")
+    check_geometry("markerless", launches, calls, board=False)
+    compare_first_jacobians("markerless", CHAIN_BA, ba_first, err)
+    return launches, c
+
+
+def _run_markerless_twice(scene, frames, poses, config):
+    """``run_markerless``'s two runs, each held to the bounds; returns the
+    last run's counters."""
     for run in range(2):
         t0 = time.perf_counter()
         res = process(frames, path=str(OUT / f"markerless{run}"), config=config, device="cuda")
@@ -552,12 +886,7 @@ def run_markerless(scene, frames, poses):
             raise AssertionError(f"rmse {res.reprojection_rmse} outside {RMSE_MAX_PX}")
         if not np.isfinite(res.volume):
             raise AssertionError("non-finite hull volume")
-    launches = counts()
-    if min(launches[k] for k in CLAHE) <= 0:
-        raise AssertionError(f"a kernel of the markerless path never launched: {launches}")
-    if launches["refine_relpose"] != 4:
-        raise AssertionError(f"the bootstrap did not launch refine_relpose twice a run: {launches}")
-    return launches, c
+    return c
 
 
 def run_fallback(frames):
@@ -642,16 +971,21 @@ def run_batch(scene, clips):
     return counts(), results[0].metrics["counters"]
 
 
-def run_pipelined(scene, clips, corners):
-    """Phase 8: ``process_batch_pipelined`` on two 300-frame clips, then the
-    same two through ``process``. Returns the pipelined run's launches."""
+def run_pipelined(scene, clips, corners, err):
+    """Phase 8: ``process_batch_pipelined`` on two 300-frame clips, the
+    geometry kernels at its calls (``geometry_at_path``), then the same two
+    through ``process``. Returns the pipelined run's launches."""
     config = headline_config()
     reset_counts()
     t0 = time.perf_counter()
-    piped = process_batch_pipelined(clips, config=config, known_corners=corners)
-    torch.cuda.synchronize()
+    with geometry_recorded(BOARD_BA) as (calib_calls, pnp_calls, ba_first, calls):
+        piped = process_batch_pipelined(clips, config=config, known_corners=corners)
+        torch.cuda.synchronize()
     t_pipe = time.perf_counter() - t0
     launches = counts()
+    check_geometry("pipelined", launches, calls, board=True)
+    geometry_at_path("pipelined", calib_calls, pnp_calls, ba_first, BOARD_BA, err)
+    del calib_calls, pnp_calls, ba_first
     t0 = time.perf_counter()
     seq = [process(v, config=config, known_corners=c, device="cuda") for v, c in zip(clips, corners)]
     torch.cuda.synchronize()
@@ -857,7 +1191,8 @@ def run_mesh(dev, problem, pair, frames, err, timings):
     for devices in meshes:
         devices = [torch.device(d) for d in devices]
         for name, pr in (("known-path BA problem", problem), ("JAX sharding-test problem", synthetic)):
-            out = point_sharded_check(pr, devices)
+            with first_calls_within(OBS_JACOBIANS, *SHARDED_BA) as ba_first:
+                out = point_sharded_check(pr, devices)
             print(f"[mesh] solve_ba_point_sharded, {name} ({out['frames']} frames, {out['points']} points, "
                   f"{out['observations']} observations) over {out['devices']}: {out['sharded_s']:.4f} s against "
                   f"{out['unsharded_s']:.4f} s unsharded (float32)")
@@ -867,6 +1202,7 @@ def run_mesh(dev, problem, pair, frames, err, timings):
                 c = out[key]
                 print(f"  {label}: iterations {c['iterations']}, rmse {c['rmse']}, cameras max|d| "
                       f"{c['cam_max_abs_diff']:.3g}, points max|d| {c['points_max_abs_diff']:.3g}")
+            compare_first_jacobians(f"mesh over {len(devices)} shards, {name}:", SHARDED_BA, ba_first, err)
         check_tp_matching(devices, pair)
         for k, v in check_preprocess(devices, frames).items():
             launches[k] += v
@@ -889,13 +1225,12 @@ def main() -> int:
     gpu = _gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {gpu} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    libraries = (clahe_cuda, klt_cuda, ransac_cuda)
-    for lib in libraries:
+    for lib in LIBRARIES:
         lib.LIBRARY.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, all at once
-        list(pool.map(lambda lib: lib.build(), libraries))
-    print(f"built {', '.join(str(lib.LIBRARY) for lib in libraries)} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, all at once
+        list(pool.map(lambda lib: lib.build(), LIBRARIES))
+    print(f"built {', '.join(str(lib.LIBRARY) for lib in LIBRARIES)} in {time.perf_counter() - t0:.2f} s")
 
     err = {name: 0.0 for name in KERNELS}
     compare_kernels(dev, seeded_cases(dev), err)
@@ -904,6 +1239,8 @@ def main() -> int:
     # Phase 3c: the refinement kernel against its plain version on seeded scenes.
     compare_relpose([(c[0], to_device(caller_case(c[0]), dev)) for c in RELPOSE_CALLERS]
                     + [(c, to_device(relpose_case(c), dev)) for c in RELPOSE_EDGES], err)
+    # Phase 3d: the board geometry's kernels against their plain versions.
+    compare_geometry_seeded(dev, err)
 
     t0 = time.perf_counter()
     scene, frames, corners = headline_clip(dev)
@@ -911,12 +1248,14 @@ def main() -> int:
     print(f"rendered {frames.shape} in {time.perf_counter() - t0:.2f} s")
     OUT.mkdir(parents=True, exist_ok=True)
     config = headline_config()
-    timings, lk_timings, relpose_timings = {}, {}, {}
+    timings, lk_timings, relpose_timings, geometry_timings = {}, {}, {}, {}
 
     # Phase 4: known corners, host pass 1, grey enhance; its BA problem and
     # keyframe descriptors are recorded for phase 10.
     with recording(bundle_adjust, "solve_ba") as solves, recording(matching, "match_descriptors") as matches:
-        launches, c, _ = run_path("known", scene, frames, corners, config)
+        launches, c, _ = run_path("known", scene, frames, corners, config, err, geometry_timings)
+    # The path with the geometry's plain versions.
+    run_plain_geometry("known", scene, frames, corners, config, c)
     ba_problem = [args[0] for args, kwargs in solves if not kwargs.get("fix_points")][-1]
     q, t, qm, tm = matches[-1][0][:4]
     kf_pair = (q[0], t[0], qm[0], tm[0])
@@ -933,11 +1272,12 @@ def main() -> int:
     # first between two frames.
     dconfig = detector_config(config)
     with recording(klt, "lucas_kanade") as calls:
-        launches_d, c, flags = run_path("detector", scene, frames, None, dconfig)
+        launches_d, c, flags = run_path("detector", scene, frames, None, dconfig, err)
     # The scan's first call tracks its start frame against itself.
     scan_lk = next(case for case in map(lk_call_case, calls) if not torch.equal(case[0][0], case[1][0]))
     del calls
     add_counts(launches, launches_d)
+    run_plain_geometry("detector", scene, frames, None, dconfig, c)
     check_scan_plain(frames, dconfig, flags, c["keyframe_indices"])
     compare_lk([("headline scan input", scan_lk)], err)
     time_lk_at("headline scan input", scan_lk, lk_timings)
@@ -957,7 +1297,7 @@ def main() -> int:
     mscene, mframes, mposes = markerless_clip(dev)
     print(f"rendered {mframes.shape} in {time.perf_counter() - t0:.2f} s")
     with recording(ransac, "refine_relative_pose") as calls:
-        launches_m, c = run_markerless(mscene, mframes, mposes)
+        launches_m, c = run_markerless(mscene, mframes, mposes, err)
     add_counts(launches, launches_m)
     # The first run's bootstrap: its essential candidates, then its homography's.
     bootstrap = [relpose_call_case(call) for call in calls[:2]]
@@ -972,37 +1312,51 @@ def main() -> int:
     compare_kernels(dev, [("marker-free keyframes", kf_grey, (8, 8))], err)
     time_at("marker-free keyframes", kf_grey, timings)
     reset_counts()
-    run_fallback(mframes)
-    if min(counts().values()) <= 0:
-        raise AssertionError(f"a kernel of the fallback path never launched: {counts()}")
-    add_counts(launches, counts())
+    with first_calls_within(OBS_JACOBIANS, *CHAIN_BA) as ba_first, geometry_counts() as geometry_calls:
+        run_fallback(mframes)
+    launches_f = counts()
+    check_geometry("fallback", launches_f, geometry_calls, board=False)
+    if min(launches_f[k] for k in KERNELS if k not in ("pnp_refine", "calib_lm")) <= 0:
+        raise AssertionError(f"a kernel of the fallback path never launched: {launches_f}")
+    add_counts(launches, launches_f)
+    compare_first_jacobians("fallback", CHAIN_BA, ba_first, err)
+    del ba_first
 
     # Phase 7: the multi-video batch.
     t0 = time.perf_counter()
     bscene, bclips = batch_clips(dev)
     print(f"rendered {len(bclips)} x {bclips[0].shape} in {time.perf_counter() - t0:.2f} s")
-    launches_b, c = run_batch(bscene, bclips)
+    with geometry_recorded(BATCH_BA) as (calib_calls, pnp_calls, ba_first, geometry_calls):
+        launches_b, c = run_batch(bscene, bclips)
+    check_geometry("batch", launches_b, geometry_calls, board=True)
     add_counts(launches, launches_b)
+    geometry_at_path("batch", calib_calls, pnp_calls, ba_first, BATCH_BA, err)
+    del calib_calls, pnp_calls, ba_first
     batch_kf = torch.from_numpy(
         native_ops.bgr_to_grey_down(np.ascontiguousarray(bclips[0][c["keyframe_indices"]]), c["kf_scale"])
     ).to(dev).float()
 
     # Phase 8: the pipelined schedule on the headline clip and a seed-7 render.
     _, frames7, corners7 = headline_clip(dev, seed=PP_SEED)
-    launches_p = run_pipelined(scene, [frames, frames7], [corners, corners7])
+    launches_p = run_pipelined(scene, [frames, frames7], [corners, corners7], err)
     add_counts(launches, launches_p)
     frames32 = torch.from_numpy(np.ascontiguousarray(frames[:32]))
     del frames, frames7
 
     # Phase 9: odometry over the board-free clip, two-view, the kernels, the CLI.
-    with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines:
+    with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines, \
+            geometry_counts() as geometry_calls:
         launches_o, odo = run_odometry(mscene, mframes, mposes)
+    check_geometry("odometry", launches_o, geometry_calls, board=False, chain=False)
     add_counts(launches, launches_o)
     odometry_lk, odometry_refine = lk_call_case(calls[0]), [relpose_call_case(r) for r in refines[:2]]
     del refines
     odometry_plain(mscene, mframes, odo)
-    with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines:
-        add_counts(launches, run_two_view(mscene, mframes))
+    with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines, \
+            geometry_counts() as geometry_calls:
+        launches_t = run_two_view(mscene, mframes)
+    check_geometry("two-view", launches_t, geometry_calls, board=False, chain=False)
+    add_counts(launches, launches_t)
     lk_cases = [("odometry step 1", odometry_lk), ("two-view matches", lk_call_case(calls[0]))]
     two_view_refine = [relpose_call_case(r) for r in refines]
     del calls, refines
@@ -1035,6 +1389,12 @@ def main() -> int:
     rows["lk_track"] = dict(lk_main, at=[*lk_main["shape"], lk_main["points"]])
     rp_main = relpose_timings["odometry step 1"]
     rows["refine_relpose"] = dict(rp_main, at=[rp_main["candidates"], rp_main["points"]])
+    geo = geometry_timings["known path"]
+    rows["obs_jacobians"] = dict(geo["obs_jacobians"], at=[geo["obs_jacobians"][k] for k in ("cameras", "points",
+                                                                                              "observations")])
+    rows["pnp_refine"] = dict(geo["pnp_refine"], at=[geo["pnp_refine"][k] for k in ("twins", "frames", "points")])
+    rows["calib_lm"] = dict(geo["calib_lm"], at=[geo["calib_lm"][k] for k in ("views", "points", "n_intr",
+                                                                              "iterations")])
     record = {
         "kernels": [
             {
@@ -1050,7 +1410,8 @@ def main() -> int:
                 "bound_by": rows[name]["bound_by"],
                 "share": rows[name]["share"],
                 # No single PyTorch call computes a tile-LUT CLAHE, pyramidal
-                # LK or a robust LM refinement.
+                # LK, a robust LM refinement, projection Jacobians, a
+                # Gauss-Newton PnP or an LM calibration.
                 "library_ms": None,
                 "at": rows[name]["at"],
             }

@@ -46,13 +46,17 @@
 // torch.clamp and jnp.maximum do (fmaxf would not); an empty mask gives a NaN
 // median, NaN weights and no accepted step; `better` is false on NaN. The
 // library is built with -fmad=false, so each product and sum rounds on its
-// own as torch's elementwise ops do.
+// own as torch's elementwise ops do. The 6x6 solve, the NaN-keeping floor
+// and the 3x3 helpers come from pinhole_jet.cuh, which the board geometry's
+// kernels share.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "pinhole_jet.cuh"
 
 namespace {
+
+using pinhole::clamp_min;
+using pinhole::hat;
+using pinhole::matmul3;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -62,22 +66,6 @@ constexpr float kTiny = 1e-12f;  // the Sampson denominator's and |t|'s floor
 constexpr float kMadScale = (float)(3.0 * 1.4826);
 constexpr float kC2Floor = (float)(0.05 * 0.05);  // the Cauchy scale's floor, px^2
 constexpr uint32_t kNoKey = 0xFFFFFFFFu;  // above every |r|'s bits (<= 0x7F800000)
-
-// max(x, floor) that keeps NaN, as torch.clamp(min=) and jnp.maximum.
-__device__ __forceinline__ float clamp_min(float x, float floor) { return (isnan(x) || x >= floor) ? x : floor; }
-
-__device__ __forceinline__ void hat(float x, float y, float z, float (&k)[9]) {
-  k[0] = 0.0f; k[1] = -z;   k[2] = y;
-  k[3] = z;    k[4] = 0.0f; k[5] = -x;
-  k[6] = -y;   k[7] = x;    k[8] = 0.0f;
-}
-
-__device__ __forceinline__ void matmul3(const float (&a)[9], const float (&b)[9], float (&c)[9]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) c[3 * i + j] = (a[3 * i] * b[j] + a[3 * i + 1] * b[3 + j]) + a[3 * i + 2] * b[6 + j];
-}
 
 // exp(rv) (Rodrigues, so3.exp's branches) and, if `d_rot` is given, its
 // tangent along each of the three axes.
@@ -273,42 +261,6 @@ __device__ uint32_t next_key(Shared& sh, const float* scratch, const uint8_t* __
   return sh.key_hi;
 }
 
-// Solves a x = b (6x6) by LU with partial pivoting (the first largest |pivot|
-// on ties, as LAPACK's isamax). A NaN anywhere gives NaN, a zero pivot inf
-// or NaN: the caller's cost test then refuses the step.
-__device__ void solve6(float (&a)[6][6], float (&b)[6], float (&x)[6]) {
-  for (int col = 0; col < 6; ++col) {
-    int piv = col;
-    float best = fabsf(a[col][col]);
-    for (int r = col + 1; r < 6; ++r) {
-      if (fabsf(a[r][col]) > best) {
-        best = fabsf(a[r][col]);
-        piv = r;
-      }
-    }
-    if (piv != col) {
-      for (int c = 0; c < 6; ++c) {
-        const float t = a[col][c];
-        a[col][c] = a[piv][c];
-        a[piv][c] = t;
-      }
-      const float t = b[col];
-      b[col] = b[piv];
-      b[piv] = t;
-    }
-    for (int r = col + 1; r < 6; ++r) {
-      const float f = a[r][col] / a[col][col];
-      for (int c = col + 1; c < 6; ++c) a[r][c] -= f * a[col][c];
-      b[r] -= f * b[col];
-    }
-  }
-  for (int i = 5; i >= 0; --i) {
-    float s = b[i];
-    for (int j = i + 1; j < 6; ++j) s -= a[i][j] * x[j];
-    x[i] = s / a[i][i];
-  }
-}
-
 __device__ __forceinline__ void unit_t(float* p) {
   const float norm = sqrtf((p[3] * p[3] + p[4] * p[4]) + p[5] * p[5]);
   const float d = clamp_min(norm, kTiny);
@@ -416,7 +368,7 @@ __global__ void __launch_bounds__(kThreads) refine_relpose_kernel(
         a[r][r] += damp;
         g[r] = sh.sums[21 + r];
       }
-      solve6(a, g, step);
+      pinhole::lu_solve<float, 6>(a, g, step, 6);
       for (int k = 0; k < 6; ++k) sh.cand[k] = sh.params[k] - step[k];
       unit_t(sh.cand);
       float e[9];

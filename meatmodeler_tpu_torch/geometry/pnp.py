@@ -1,18 +1,22 @@
 """Planar PnP, batched over frames (torch twin of
 ``meatmodeler_tpu/geometry/pnp.py``): closed-form homography init with both
 planar twins, Gauss-Newton refinement of each, keep the lower-cost pose.
-Points are already undistorted."""
+Points are already undistorted. On the card the refinement of every frame
+and both twins is one launch of the hand-written kernel ``csrc/pnp.cu``
+(``pnp_cuda``); on the CPU it is the plain version
+(:func:`refine_pose_reference`)."""
 
 from __future__ import annotations
 
 import torch
 from torch.func import jacfwd, vmap
 
-from meatmodeler_tpu_torch.geometry import projection, so3
+from meatmodeler_tpu_torch.geometry import pnp_cuda, projection, so3
 from meatmodeler_tpu_torch.geometry.homography import find_homography
+from meatmodeler_tpu_torch.ops import cuda_build
 from meatmodeler_tpu_torch.utils.numerics import one_thread_at_a_time
 
-__all__ = ["solve_pnp_planar", "refine_pose", "solve_pnp_batch"]
+__all__ = ["solve_pnp_planar", "refine_pose", "refine_pose_reference", "solve_pnp_batch"]
 
 
 def _orthonormalize(r: torch.Tensor) -> torch.Tensor:
@@ -58,8 +62,26 @@ def solve_pnp_planar(plane_uv, obj_cols, img_pts, intrinsics):
 
 
 def refine_pose(pose, obj_pts, img_pts, intrinsics, iters: int = 10, damping: float = 1e-8):
-    """Gauss-Newton refinement of (F, 6) poses against (N, 3) object points
-    and (F, N, 2) pixels (the ``SOLVEPNP_ITERATIVE`` functional)."""
+    """Gauss-Newton refinement (the ``SOLVEPNP_ITERATIVE`` functional) of
+    one (6,) pose against (N, 3) object points and (N, 2) pixels, as the
+    reference takes it, or of (F, 6) poses against (F, N, 2) pixels. One
+    launch of the CUDA kernel (``pnp_cuda``) for tensors on the card, the
+    plain version for tensors on the CPU."""
+    if cuda_build.on_card(pose):
+        single = pose.ndim == 1
+        poses = pose.reshape(1, -1, 6)
+        img = img_pts.reshape(-1, img_pts.shape[-2], 2)
+        out, _ = pnp_cuda.pnp_refine(poses, obj_pts, img, intrinsics, iters, damping)
+        return out[0, 0] if single else out[0]
+    return refine_pose_reference(pose, obj_pts, img_pts, intrinsics, iters, damping)
+
+
+def refine_pose_reference(pose, obj_pts, img_pts, intrinsics, iters: int = 10, damping: float = 1e-8):
+    """The plain version of :func:`refine_pose`: each iteration a
+    ``vmap(jacfwd)`` of the residual behind the forward-AD lock, the normal
+    equations and a batched solve."""
+    if pose.ndim == 1:
+        return refine_pose_reference(pose[None], obj_pts, img_pts[None], intrinsics, iters, damping)[0]
 
     def residual(p, img):
         return (projection.project_points(obj_pts, p[None, :], intrinsics) - img).reshape(-1)
@@ -76,14 +98,21 @@ def refine_pose(pose, obj_pts, img_pts, intrinsics, iters: int = 10, damping: fl
     return pose
 
 
+def _cost(pose, obj_pts, img_pts, intrinsics):
+    """(F,) sum |proj - img|^2 of (F, 6) poses against (F, N, 2) pixels."""
+    proj = projection.project_points(obj_pts[None], pose[:, None, :], intrinsics)
+    return torch.sum((proj - img_pts) ** 2, dim=(-2, -1))
+
+
 def solve_pnp_batch(plane_uv, obj_cols, obj_pts, img_pts, intrinsics, iters: int = 10):
-    """Planar init + GN refine for (F, N, 2) frames -> (F, 6) poses."""
+    """Planar init + GN refine for (F, N, 2) frames -> (F, 6) poses. On the
+    card both twins of every frame refine in one launch, which also returns
+    their costs."""
     init_a, init_b = solve_pnp_planar(plane_uv, obj_cols, img_pts, intrinsics)
-    pose_a = refine_pose(init_a, obj_pts, img_pts, intrinsics, iters=iters)
-    pose_b = refine_pose(init_b, obj_pts, img_pts, intrinsics, iters=iters)
-
-    def cost(p):
-        proj = projection.project_points(obj_pts[None], p[:, None, :], intrinsics)
-        return torch.sum((proj - img_pts) ** 2, dim=(-2, -1))
-
-    return torch.where((cost(pose_a) <= cost(pose_b))[:, None], pose_a, pose_b)
+    if cuda_build.on_card(img_pts):
+        poses, cost = pnp_cuda.pnp_refine(torch.stack([init_a, init_b]), obj_pts, img_pts, intrinsics, iters)
+        return torch.where((cost[0] <= cost[1])[:, None], poses[0], poses[1])
+    pose_a = refine_pose_reference(init_a, obj_pts, img_pts, intrinsics, iters=iters)
+    pose_b = refine_pose_reference(init_b, obj_pts, img_pts, intrinsics, iters=iters)
+    better_a = _cost(pose_a, obj_pts, img_pts, intrinsics) <= _cost(pose_b, obj_pts, img_pts, intrinsics)
+    return torch.where(better_a[:, None], pose_a, pose_b)

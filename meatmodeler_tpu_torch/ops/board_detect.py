@@ -54,8 +54,8 @@ def _smooth(img: torch.Tensor) -> torch.Tensor:
 
 
 def saddle_response(grey: torch.Tensor) -> torch.Tensor:
-    """``Ixy^2 - Ixx*Iyy`` of the smoothed (B, H, W) images: > 0 at
-    X-corners, <= 0 on edges and blobs."""
+    """``Ixy^2 - Ixx*Iyy`` of the smoothed (H, W) or (B, H, W) images:
+    > 0 at X-corners, <= 0 on edges and blobs."""
     img = _smooth(grey.to(torch.float32))
     d2 = torch.tensor([[1.0, -2.0, 1.0]], dtype=img.dtype, device=img.device)
     ixx = _conv2(img, d2)
@@ -72,10 +72,19 @@ class Candidates(NamedTuple):
 
 
 def saddle_candidates(
-    grey: torch.Tensor, max_candidates: int = 24, nms_window: int = 7, rel_threshold: float = 0.1
+    grey: torch.Tensor,
+    max_candidates: int = 24,
+    nms_window: int = 7,
+    rel_threshold: float = 0.1,
+    exact_topk: bool = False,
 ) -> Candidates:
-    """Top-k saddle points of (B, H, W) images, ranked exactly (ties to the
-    lower pixel index, as ``lax.top_k``), with parabolic refinement."""
+    """Top-k saddle points of (H, W) or (B, H, W) images, ranked exactly
+    (ties to the lower pixel index, as ``lax.top_k``), with parabolic
+    refinement; the outputs carry the input's leading dim. ``exact_topk``
+    is accepted for the reference's signature and ignored: the ranking is
+    always exact."""
+    if grey.ndim == 2:
+        return Candidates(*(t[0] for t in saddle_candidates(grey[None], max_candidates, nms_window, rel_threshold)))
     resp = saddle_response(grey)
     bsz, h, w = resp.shape
     dev = resp.device
@@ -176,11 +185,13 @@ def find_chessboard_device(
     hyp_candidates: int = 16,
     tol: float = 3.0,
     nms_window: int = 7,
+    exact_topk: bool = False,
 ) -> BoardDetection:
     """Detect the full inner-corner grid in an (H, W) or (B, H, W) grey
     stack. ``corners`` are row-major over the pattern (x fastest), taken
     from the matched saddle candidates; the outputs carry the input's
-    leading dim."""
+    leading dim. ``exact_topk`` is accepted for the reference's signature
+    and ignored: the candidates are always ranked exactly."""
     cols, rows = pattern
     g = cols * rows
     if max_candidates < g:

@@ -76,8 +76,11 @@ def refine_corners_subpix(
     iters: int = 30,
     eps: float = 1e-3,
 ) -> torch.Tensor:
-    """Refine (B, N, 2) corners on (B, H, W) images to sub-pixel accuracy
-    (cv2.cornerSubPix's orthogonality iteration, the reference's taper)."""
+    """Refine (B, N, 2) corners on (B, H, W) images, or (N, 2) corners on
+    one (H, W) image, to sub-pixel accuracy (cv2.cornerSubPix's
+    orthogonality iteration, the reference's taper)."""
+    if img.ndim == 2:
+        return refine_corners_subpix(img[None], corners[None], win, iters, eps)[0]
     corners = corners.to(img.dtype)
     half = win // 2
     d = torch.arange(-half, half + 1, dtype=img.dtype, device=img.device)

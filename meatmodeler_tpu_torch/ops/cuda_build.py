@@ -3,8 +3,9 @@
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/meatmodeler_tpu_torch/`` beside the package, and loaded with
 ``ctypes`` (plain C interface: pointers and the stream as ``c_void_p``).
-A library is rebuilt when it is missing or older than its source; a failed
-build raises with nvcc's output. Nothing here runs at import.
+A library is rebuilt when it is missing or older than its source or any
+shared header (``csrc/*.cuh``); a failed build raises with nvcc's output.
+Nothing here runs at import.
 
 The wrappers' launch counters (one plain dict per module) share one lock:
 the batch entry points launch from two host threads.
@@ -20,7 +21,7 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, Sequence
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "CudaLibrary", "compile_source", "count", "nvcc", "reset"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "CudaLibrary", "compile_source", "count", "nvcc", "on_card", "reset"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -42,6 +43,12 @@ def reset(launches: Dict[str, int]) -> None:
     with _count_lock:
         for k in launches:
             launches[k] = 0
+
+
+def on_card(t) -> bool:
+    """Whether a dispatch launches its kernel for tensor ``t``: a CUDA
+    tensor. CPU tensors take the plain version."""
+    return t.device.type == "cuda"
 
 
 def nvcc() -> str:
@@ -80,12 +87,13 @@ class CudaLibrary:
         return self._lib is not None
 
     def load(self) -> ctypes.CDLL:
-        """Compile when the library is missing or older than its source,
-        then load it; raises on a failed build."""
+        """Compile when the library is missing or older than its source or
+        a shared header, then load it; raises on a failed build."""
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            if not self.path.exists() or self.path.stat().st_mtime < self.source.stat().st_mtime:
+            newest = max(src.stat().st_mtime for src in (self.source, *CSRC.glob("*.cuh")))
+            if not self.path.exists() or self.path.stat().st_mtime < newest:
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = self.path.with_suffix(f".tmp{os.getpid()}.so")
                 try:

@@ -20,14 +20,17 @@ _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 
 
 def _conv2(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Same-size 2-D correlation of (B, H, W) with replicate borders."""
+    """Same-size 2-D correlation of (H, W) or (B, H, W) with replicate
+    borders."""
+    if img.ndim == 2:
+        return _conv2(img[None], kernel)[0]
     kh, kw = kernel.shape
     x = F.pad(img[:, None], (kw // 2, kw // 2, kh // 2, kh // 2), mode="replicate")
     return F.conv2d(x, kernel[None, None].to(img.dtype))[:, 0]
 
 
 def sobel(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """3x3 Sobel derivatives (Ix, Iy) of (B, H, W) images."""
+    """3x3 Sobel derivatives (Ix, Iy) of (H, W) or (B, H, W) images."""
     kx = torch.tensor(_SOBEL_X, dtype=img.dtype, device=img.device)
     return _conv2(img, kx), _conv2(img, kx.T.contiguous())
 
@@ -38,7 +41,7 @@ def _box(img: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def structure_tensor(img: torch.Tensor, block_size: int = 7):
-    """Box-windowed (Ix^2, IxIy, Iy^2) of (B, H, W) images."""
+    """Box-windowed (Ix^2, IxIy, Iy^2) of (H, W) or (B, H, W) images."""
     ix, iy = sobel(img)
     return _box(ix * ix, block_size), _box(ix * iy, block_size), _box(iy * iy, block_size)
 
@@ -74,13 +77,16 @@ def good_features(
     quality_level: float = 0.01,
     min_distance: int = 7,
     block_size: int = 7,
+    exact_topk: bool = False,
 ) -> Corners:
     """cv2.goodFeaturesToTrack with a static output shape, on (H, W) or
     (B, H, W) images (each image on its own): Shi-Tomasi response, 3x3
     non-max suppression, relative quality threshold, border margin, the
     strongest corner per (min_distance x min_distance) cell, then the
     exact top ``max_corners`` by response (ties to the lower pixel index,
-    as ``lax.top_k``; the reference's ``approx_max_k`` is exact off TPU)."""
+    as ``lax.top_k``; the reference's ``approx_max_k`` is exact off TPU).
+    ``exact_topk`` is accepted for the reference's signature and ignored:
+    the ranking is always exact."""
     single = img.ndim == 2
     img = (img[None] if single else img).to(torch.float32)
     bsz, h, w = img.shape

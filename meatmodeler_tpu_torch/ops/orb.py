@@ -96,8 +96,11 @@ def _brief_taps():
 
 
 def fast_score(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
-    """FAST-9/16 segment test on (B, H, W): 1.0 where >= 9 contiguous ring
-    neighbours are all brighter than p + t or all darker than p - t."""
+    """FAST-9/16 segment test on (H, W) or (B, H, W): 1.0 where >= 9
+    contiguous ring neighbours are all brighter than p + t or all darker
+    than p - t."""
+    if img.ndim == 2:
+        return fast_score(img[None], threshold)[0]
     h, w = img.shape[-2:]
     padded = F.pad(img[:, None], (3, 3, 3, 3), mode="replicate")[:, 0]
     ring = torch.stack([padded[:, 3 + dy : 3 + dy + h, 3 + dx : 3 + dx + w] for dy, dx in _RING], dim=1)
@@ -288,6 +291,8 @@ def detect_and_compute(
     num_levels: int = 4,
     scale_factor: float = 1.2,
     fast_threshold: float = 20.0,
+    bin_weights=None,
+    topk_recall: float = 0.95,
     grid_cells: int = 0,
 ) -> OrbFeatures:
     """Oriented-FAST detection + rBRIEF description over a scale pyramid.
@@ -297,6 +302,9 @@ def detect_and_compute(
     within a ``grid_cells`` x ``grid_cells`` grid of cells first, so weak-
     texture regions keep their best corners (the reference's bucketed
     selection; levels smaller than the grid rank globally).
+    ``bin_weights`` and ``topk_recall`` are accepted in the reference's
+    positions and ignored: they tune its TPU-only BRIEF matmul and
+    approximate top-k, and the port samples and ranks exactly.
     """
     single = img.ndim == 2
     stack = (img[None] if single else img).to(torch.float32)

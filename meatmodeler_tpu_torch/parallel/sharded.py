@@ -26,8 +26,10 @@ the tests, or ``["cuda:0"] * n``) they are an ordered sum or a stack on that
 device. Any other mix of devices is refused, and nothing falls back from
 NCCL to copies.
 
-A thread per GPU would not overlap: the Jacobians' forward-mode AD takes one
-process-wide lock (``utils.numerics.one_thread_at_a_time``).
+One host thread steps every shard in lockstep. On the card the Jacobians
+are a kernel (``solvers/bundle_adjust_cuda``) and take no lock; on the CPU
+their plain version's forward-mode AD takes a process-wide one
+(``utils.numerics.one_thread_at_a_time``).
 """
 
 from __future__ import annotations

@@ -919,9 +919,37 @@ def _reconstruct_to_ba(video, config, known_corners, metrics, ckpt, device) -> P
     )
 
 
+def _config_from_param_dicts(config, lk_params, feature_params):
+    """Fold the reference's cv2 parameter dicts (``lk_params``: winSize,
+    maxLevel, criteria; ``feature_params``: maxCorners, qualityLevel,
+    minDistance, blockSize) into ``config.keyframe``."""
+    kf = config.keyframe
+    if lk_params:
+        if "winSize" in lk_params:
+            kf = dataclasses.replace(kf, window=int(lk_params["winSize"][0]))
+        if "maxLevel" in lk_params:
+            kf = dataclasses.replace(kf, pyramid_levels=int(lk_params["maxLevel"]) + 1)
+        if "criteria" in lk_params:
+            _, iters, eps = lk_params["criteria"]
+            kf = dataclasses.replace(kf, max_iters=int(iters), eps=float(eps))
+    if feature_params:
+        if "maxCorners" in feature_params:
+            kf = dataclasses.replace(kf, max_corners=int(feature_params["maxCorners"]))
+        if "qualityLevel" in feature_params:
+            kf = dataclasses.replace(kf, quality_level=float(feature_params["qualityLevel"]))
+        if "minDistance" in feature_params:
+            kf = dataclasses.replace(kf, min_distance=int(feature_params["minDistance"]))
+        if "blockSize" in feature_params:
+            kf = dataclasses.replace(kf, block_size=int(feature_params["blockSize"]))
+    return dataclasses.replace(config, keyframe=kf)
+
+
 def process(
     video,
     path: Optional[str] = None,
+    lk_params: Optional[dict] = None,
+    feature_params: Optional[dict] = None,
+    flann_params: Optional[dict] = None,
     config: PipelineConfig = DEFAULT_CONFIG,
     known_corners: Optional[np.ndarray] = None,
     checkpoint_dir: Optional[str] = None,
@@ -929,14 +957,17 @@ def process(
 ) -> ProcessResult:
     """Video -> bundle-adjusted point cloud + volume (+ ``<path>Cloud.ply``).
 
-    The reference's entry point without its cv2 parameter dicts (set
-    ``config`` instead), plus ``device``: the whole device half runs there
-    ("cuda" by default). Without CUDA a "cuda" device raises; the run
-    never moves to the CPU on its own (pass ``device="cpu"`` for that).
+    The reference's entry point, plus ``device``: the whole device half
+    runs there ("cuda" by default). Without CUDA a "cuda" device raises;
+    the run never moves to the CPU on its own (pass ``device="cpu"`` for
+    that).
 
     Args:
       video: path (.npy/.y4m) or (T, H, W[, 3]) uint8 array.
       path: output prefix for ``<path>Cloud.ply`` (skipped if None).
+      lk_params / feature_params / flann_params: the reference's cv2
+        parameter dicts, folded into ``config.keyframe``; ``flann_params``
+        is accepted and ignored (matching is exact).
       config: the config tree. Without ``known_corners`` it needs
         ``assume_markerless``, or ``pass1_backend="device"`` and
         ``chessboard.detector="device"``.
@@ -949,6 +980,7 @@ def process(
         keyframe stage.
     """
     device = _make_device(device)
+    config = _config_from_param_dicts(config, lk_params, feature_params)
     _check_supported(config, known_corners)
     metrics = Metrics()
     ckpt = StageCheckpointer(checkpoint_dir)

@@ -1,8 +1,9 @@
 """Schur-complement Levenberg-Marquardt bundle adjustment (torch twin of
 ``meatmodeler_tpu/solvers/bundle_adjust.py``).
 
-Same algorithm as the reference: per-observation Jacobians by forward-mode
-AD, block-diagonal U (F,6,6) / V (P,3,3), point elimination through the
+Same algorithm as the reference: per-observation Jacobians (one launch of
+the hand-written kernel ``csrc/ba_jac.cu`` an iteration on the card,
+forward-mode AD on the CPU), block-diagonal U (F,6,6) / V (P,3,3), point elimination through the
 dense (P, F*6, 3) strip, a dense reduced camera solve, back-substitution,
 and the Marquardt-damped LM loop with the reference's ftol rule. The loop is
 a Python loop that reads one flag back per iteration. Problems are solved
@@ -30,6 +31,8 @@ from torch.func import jacfwd, vmap
 
 from meatmodeler_tpu_torch.config import SolverConfig
 from meatmodeler_tpu_torch.geometry import projection
+from meatmodeler_tpu_torch.ops import cuda_build
+from meatmodeler_tpu_torch.solvers import bundle_adjust_cuda
 from meatmodeler_tpu_torch.utils.numerics import one_thread_at_a_time
 
 __all__ = ["BAProblem", "BAResult", "solve_ba", "solve_ba_batch", "adjust_points", "adjust_pose", "pose_only_refine"]
@@ -65,7 +68,23 @@ def _residuals(cam, pts, intrinsics, obs, fidx, pidx, mask, weight=None):
 
 
 def _obs_jacobians(cam, pts, intrinsics, obs, fidx, pidx, mask, weight=None):
-    """Per-observation residual Jacobians: (N,2,6) wrt camera, (N,2,3) wrt point."""
+    """Per-observation residual Jacobians: (N,2,6) wrt camera, (N,2,3) wrt
+    point, masked and weighted; with a leading lane axis on every argument,
+    per lane (``solve_ba_batch``). One launch of the CUDA kernel
+    (``bundle_adjust_cuda``) for tensors on the card, the plain version for
+    tensors on the CPU."""
+    if cuda_build.on_card(cam):
+        return bundle_adjust_cuda.obs_jacobians(cam, pts, intrinsics, fidx, pidx, mask, weight)
+    if cam.ndim == 3:
+        extra = () if weight is None else (weight,)
+        return vmap(_obs_jacobians_reference)(cam, pts, intrinsics, obs, fidx, pidx, mask, *extra)
+    return _obs_jacobians_reference(cam, pts, intrinsics, obs, fidx, pidx, mask, weight)
+
+
+def _obs_jacobians_reference(cam, pts, intrinsics, obs, fidx, pidx, mask, weight=None):
+    """The plain version of :func:`_obs_jacobians` for one problem:
+    ``vmap(jacfwd)`` of the projection over the observations, behind the
+    forward-AD lock."""
 
     def res(c, p, ob):
         return projection.project_points(p[None], c[None], intrinsics)[0] - ob
@@ -372,7 +391,7 @@ class _BatchSolve:
         still active" flag, on the device (not read)."""
         config, cam, pts, lam, active = self.config, self.cam, self.pts, self.lam, self.active
         r = vmap(_residuals)(cam, pts, *self.weighted)
-        jc, jp = vmap(_obs_jacobians)(cam, pts, *self.weighted)
+        jc, jp = _obs_jacobians(cam, pts, *self.weighted)
 
         def attempt(lam_try):
             dc, dp = _solve_normal_equations_batch(self.problem._replace(cam_params=cam, points=pts), lam_try, jc, jp, r)

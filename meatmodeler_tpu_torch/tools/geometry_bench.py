@@ -1,0 +1,514 @@
+"""Time the board geometry's three CUDA kernels against their bounds on one GPU.
+
+    python3 -m meatmodeler_tpu_torch.tools.geometry_bench [--ptxas]
+
+The kernels: ``obs_jacobians`` (``csrc/ba_jac.cu``, one launch per BA LM
+iteration), ``pnp_refine`` (``csrc/pnp.cu``, one launch per
+``solve_pnp_batch``) and ``calib_lm`` (``csrc/calib.cu``, one launch per
+calibration LM run). At seeded inputs of their callers' shapes (the known
+path's 22 keyframes of a (4, 3) board at the pass-2 resolution 960x540,
+its pose-only and global BA problems, a batch of 8 lanes): each
+kernel's device time, its plain PyTorch version's, the work the call needs,
+the bound it sets and the share of it reached. Times are
+``clahe_bench.time_ms``'s: medians with a cold L2 and the host's launch
+time hidden (25 calls of a kernel, 5 of a plain version).
+
+Work is what the function needs, not what the kernels' code does: each
+arithmetic operation, comparison, sqrt, sin or cos one; one branch of each
+choice (the rotation's closed form; its Taylor branch costs less); nothing
+for a tangent that is zero; K upper triangular with last row (0, 0, 1), as
+every caller's is; each sum over a point's two residual rows 2 products and
+2 additions. The pieces:
+
+- ``ROT_VALUE_OPS``: R from one rvec (theta^2 5, theta, sin, cos 3, the two
+  coefficients 3, K^2 as r r^T - theta^2 I 9, R = I + aK + bK^2 24);
+  ``ROT_OPS`` adds its three derivatives dR/drvec_k (the coefficients'
+  derivatives 15, then 9 entries of 6 operations per k), once per camera
+  or start and iteration, never per point;
+- ``POINT_OPS``: R p + t (18) and the divide (1/z and two products);
+  ``PIN_OPS``: the K product (u 4, v 2); ``PIN_DPC_OPS``: d(u, v)/dp_c (7);
+  ``ROT_COL_OPS``: the three rotation columns, dp_c/drvec (45) through
+  d(u, v)/dp_c (30); ``POINT_COL_OPS``: d(u, v)/dp_c R, the point columns
+  (30); the translation's columns are d(u, v)/dp_c itself;
+- ``obs_jacobians``: ``ROT_OPS`` per camera; per observation in the mask
+  ``BA_OBS_OPS`` (the above and mask * weight times the 18 entries). Bytes:
+  the cameras, points and K read once, the indices, mask and weight, and
+  the (2, 6) + (2, 3) rows of every observation written;
+- ``pnp_refine``: per start and iteration ``ROT_OPS``, per point
+  ``PNP_POINT_OPS`` (the projection, its residual, d(u, v)/dp_c, the rotation
+  columns and the 27 sums of J^T J and J^T r), and the damped 6x6 solve and
+  update ``PNP_SOLVE_OPS`` (Cholesky with its roots, two triangular solves);
+  then the final cost. Bytes: the starts, the board, the pixels and K read
+  once; poses and costs written once;
+- ``calib_lm``: per iteration and view in the mask ``ROT_OPS`` and the rows
+  of its points (``calib_row_ops``: the projection with the ``num_dist``
+  distortion terms of the call's layout, the residual, the distortion's 2x2
+  Jacobian, d(u, v)/dp_c, the rotation columns, ``num_dist`` distortion
+  columns, the focal and centre columns free, and the sums of the view's
+  6x6 block, its 6 x n_intr cross block, the intrinsics' block and both
+  right-hand sides); per damping trial and view the damped 6x6 block's
+  Cholesky, n_intr + 1 solves, its Schur terms, the back-substitution, the
+  candidate and its cost; per trial the intrinsics' Schur solve; the accept
+  rule; counted for the iterations the call ran (the kernel reports them),
+  plus the starting cost. Bytes: theta0, the pixels and the board read once;
+  theta and the cost written once.
+
+The bound is the larger of operations at 67 TFLOP/s (float32 outside the
+tensor cores) and bytes at 3.35 TB/s. ``obs_jacobians`` is bound by bytes
+at the global BA's size; the other two are chains of dependent steps
+(``steps``: iterations x block phases), which set their time.
+
+  --ptxas  compiles the three sources once more with ``-Xptxas -v`` and
+           prints each kernel's registers, shared memory and spills.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import sys
+import tempfile
+from pathlib import Path
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from meatmodeler_tpu_torch.geometry import calibration, calibration_cuda, pnp, pnp_cuda, projection, so3
+from meatmodeler_tpu_torch.ops import cuda_build
+from meatmodeler_tpu_torch.solvers import bundle_adjust, bundle_adjust_cuda
+from meatmodeler_tpu_torch.tools.clahe_bench import HBM_BYTES_PER_S, time_ms
+
+FP32_FLOPS_PER_S = 67e12  # one H100 SXM, float32 outside the tensor cores
+ROT_VALUE_OPS = 44
+ROT_OPS = ROT_VALUE_OPS + 15 + 3 * 9 * 6
+POINT_OPS = 18 + 3
+PIN_OPS = 6
+PIN_DPC_OPS = 7
+ROT_COL_OPS = 45 + 30
+POINT_COL_OPS = 30
+SUM_OPS = 4  # one entry of J^T J or J^T r summed over a point's two rows
+BA_OBS_OPS = POINT_OPS + PIN_OPS + PIN_DPC_OPS + ROT_COL_OPS + POINT_COL_OPS + 1 + 18
+PNP_POINT_OPS = POINT_OPS + PIN_OPS + 2 + PIN_DPC_OPS + ROT_COL_OPS + 27 * SUM_OPS
+PNP_COST_OPS = POINT_OPS + PIN_OPS + 2 + SUM_OPS
+CHOL6_OPS = 72 + 6  # Cholesky of a 6x6 block and its roots
+TRSV6_OPS = 72  # a forward and a back substitution at 6x6
+PNP_SOLVE_OPS = 6 + CHOL6_OPS + TRSV6_OPS + 6
+# distort_normalized's value and its 2x2 Jacobian d(x_d, y_d)/d(x, y) with
+# the first num_dist = 0..5 coefficients (k1, k2, p1, p2, k3).
+DIST_OPS = (0, 7, 9, 18, 26, 28)
+DIST_JAC_OPS = (0, 10, 13, 23, 33, 37)
+DIST_COL_OPS = 4  # per distortion coefficient: its two entries, scaled by the focal
+LM_RULE_OPS = 20  # use1, improved, the costs' selects, rel, done and the damping
+JAC_TOL = 1e-5  # elementwise, relative to max(1, |J|) of the observation's block
+POSE_TOL = 1e-4  # PnP poses, calibrate's poses and distortion, where float32 does not decide
+CALIB_RTOL = 1e-4  # calibrate's focal(s), principal point and rms, where float32 does not decide
+DETERMINED_TOL = 1e-5  # the plain float32 result within this (relative) of float64
+
+# The known path's geometry: 1920x1080 at focal 1500, pass 2 at half size;
+# a (4, 3) board with 2-unit squares in the X-Z plane for the poses, unit
+# squares on z = 0 for calibrate; 22 keyframes.
+IMAGE_SIZE = (960, 540)
+K_HEADLINE = np.array([[750.0, 0.0, 480.0], [0.0, 750.0, 270.0], [0.0, 0.0, 1.0]])
+PATTERN = (4, 3)
+FRAMES = 22
+BA_EDGES = ("rvec0", "rvec1e-7", "rvec1e-3", "near_pi")
+
+
+def _rodrigues(rv: np.ndarray) -> np.ndarray:
+    th = np.linalg.norm(rv)
+    k = np.array([[0, -rv[2], rv[1]], [rv[2], 0, -rv[0]], [-rv[1], rv[0], 0]])
+    if th < 1e-12:
+        return np.eye(3) + k
+    return np.eye(3) + np.sin(th) / th * k + (1 - np.cos(th)) / th**2 * k @ k
+
+
+def _log(rot: np.ndarray) -> np.ndarray:
+    return so3.log(torch.from_numpy(rot)).numpy()
+
+
+def board_poses(frames: int, seed: int, xz: bool = False) -> np.ndarray:
+    """(F, 6) poses seeing a (4, 3) board from 14-22 units, tilted up to
+    ~35 degrees: of the z = 0 unit board, or (``xz``) of the X-Z board with
+    2-unit squares (the pipeline's)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(frames):
+        rv = np.array([0.5 * np.sin(0.7 * i), 0.5 * np.cos(0.5 * i), 0.2 * rng.normal()])
+        rv = rv * rng.uniform(0.3, 1.2)
+        r0 = _rodrigues(rv)
+        center = np.array([1.5, 1.0, 0.0]) * (2.0 if xz else 1.0)
+        t = -r0 @ center + np.array([rng.normal() * 0.5, rng.normal() * 0.5, rng.uniform(14, 22) * (2 if xz else 1)])
+        if xz:  # p_z0 = M^T p_xz with M (x, y, z) -> (x, -z, y)
+            m = np.array([[1.0, 0, 0], [0, 0, -1.0], [0, 1.0, 0]])
+            r0 = r0 @ m.T
+        out.append(np.concatenate([_log(r0), t]))
+    return np.stack(out)
+
+
+def _project(obj: np.ndarray, poses: np.ndarray, k: np.ndarray) -> np.ndarray:
+    return projection.project_points(torch.from_numpy(obj)[None], torch.from_numpy(poses)[:, None],
+                                     torch.from_numpy(k)).numpy()
+
+
+def calib_case(name: str = "calibrate", seed: int = 0) -> Dict[str, object]:
+    """Seeded inputs of one ``calibrate`` call (numpy, float32): ``img``
+    (F, N, 2), ``obj`` (N, 3), ``image_size``, the layout keywords and
+    ``view_mask`` (or None). 0.3 px noise; ``calibrate_dist5`` adds
+    distortion to the pixels and masks the last view."""
+    from meatmodeler_tpu_torch.geometry import distortion
+
+    obj = calibration.chessboard_object_points(PATTERN, torch.float64).numpy()
+    poses = board_poses(FRAMES, seed)
+    rng = np.random.default_rng(seed + 100)
+    k = K_HEADLINE.copy()
+    kw = dict(num_dist=0, fix_principal_point=True, single_focal=True)
+    img = _project(obj, poses, k)
+    mask = None
+    if name == "calibrate_dist5":
+        k[0, 0], k[1, 1], k[0, 2], k[1, 2] = 760.0, 745.0, 476.0, 272.0
+        img = _project(obj, poses, k)
+        dist = torch.tensor([-0.08, 0.05, 1e-3, -5e-4, 0.0], dtype=torch.float64)
+        img = distortion.distort_pixels(torch.from_numpy(img), torch.from_numpy(k), dist).numpy()
+        kw = dict(num_dist=5, fix_principal_point=False, single_focal=False)
+        mask = np.ones(FRAMES, bool)
+        mask[-1] = False
+    img = img + rng.normal(scale=0.3, size=img.shape)
+    f = np.float32
+    return dict(img=img.astype(f), obj=obj.astype(f), image_size=IMAGE_SIZE, view_mask=mask, **kw)
+
+
+def lm_args(case: Dict[str, object], device, dtype=torch.float32) -> tuple:
+    """``calibration.run_lm``'s positional arguments at ``case``: theta0
+    from ``calibration.initial_theta``, 30 iterations."""
+    img = torch.from_numpy(case["img"]).to(device, dtype)
+    obj = torch.from_numpy(case["obj"]).to(device, dtype)
+    mask = None if case["view_mask"] is None else torch.from_numpy(case["view_mask"]).to(device)
+    layout = dict(image_size=case["image_size"], num_dist=case["num_dist"],
+                  fix_principal_point=case["fix_principal_point"], single_focal=case["single_focal"])
+    theta0 = calibration.initial_theta(img, obj, view_mask=mask, **layout)
+    return (theta0, img, obj, case["image_size"], case["num_dist"], 30, case["fix_principal_point"],
+            case["single_focal"], mask)
+
+
+def pnp_case(seed: int = 0, frames: int = FRAMES) -> Tuple[np.ndarray, ...]:
+    """Seeded inputs of the known path's ``solve_pnp_batch`` (float32 numpy):
+    (plane_uv (N, 2), obj_pts (N, 3) on the X-Z board, img (F, N, 2), K);
+    obj_cols is (0, 2). 0.3 px noise."""
+    gx, gy = np.meshgrid(np.arange(PATTERN[0]), np.arange(PATTERN[1]), indexing="xy")
+    obj = np.stack([gx.reshape(-1) * 2.0, np.zeros(gx.size), gy.reshape(-1) * 2.0], axis=-1)
+    img = _project(obj, board_poses(frames, seed, xz=True), K_HEADLINE)
+    img = img + np.random.default_rng(seed + 200).normal(scale=0.3, size=img.shape)
+    f = np.float32
+    return obj[:, [0, 2]].astype(f), obj.astype(f), img.astype(f), K_HEADLINE.astype(f)
+
+
+def pnp_args(case, device, dtype=torch.float32, iters: int = 10) -> tuple:
+    """``pnp_cuda.pnp_refine``'s arguments at a ``pnp_case``: both planar
+    twins of every frame from ``pnp.solve_pnp_planar``."""
+    plane, obj, img, k = (torch.from_numpy(x).to(device, dtype) for x in case)
+    init_a, init_b = pnp.solve_pnp_planar(plane, (0, 2), img, k)
+    return torch.stack([init_a, init_b]), obj, img, k, iters, 1e-8
+
+
+class BACase(NamedTuple):
+    cam: torch.Tensor
+    pts: torch.Tensor
+    intrinsics: torch.Tensor
+    fidx: torch.Tensor
+    pidx: torch.Tensor
+    mask: torch.Tensor
+    weight: Optional[torch.Tensor]
+
+
+def ba_case(name: str, device="cpu", dtype=torch.float32, seed: int = 0) -> BACase:
+    """Seeded inputs of one ``obs_jacobians`` call: ``ba_pose`` (the known
+    path's pose-only BA: 22 cameras, 12 board points, 264 observations),
+    ``ba_global`` (a global BA at its size: 2000 points, 12000
+    observations, weighted, 3% masked), ``ba_lanes`` (``solve_ba_batch``'s:
+    8 lanes of 11 cameras, 400 points, 3000 observation slots, the tails
+    masked) or one of ``BA_EDGES``: the pose-only problem with every
+    camera's rvec set to 0, to 1e-7 or 1e-3 (the Taylor branch, its edge,
+    the closed form under cancellation) or near pi."""
+    rng = np.random.default_rng(seed)
+    weight = None
+    if name in ("ba_pose", *BA_EDGES):
+        pts = pnp_case(seed)[1].astype(np.float64)
+        cams = board_poses(FRAMES, seed, xz=True)
+        f, p = len(cams), len(pts)
+        fidx, pidx = np.repeat(np.arange(f), p), np.tile(np.arange(p), f)
+        mask = np.ones(f * p, bool)
+        u = np.array([0.6, -0.8, 0.0])
+        if name == "rvec0":
+            cams[:, :3] = 0.0
+        elif name == "rvec1e-7":
+            cams[:, :3] = 1e-7 * u * rng.uniform(0.5, 1.5, size=(f, 1))
+        elif name == "rvec1e-3":
+            cams[:, :3] = 1e-3 * u * rng.uniform(0.5, 1.5, size=(f, 1))
+        elif name == "near_pi":
+            axis = np.array([0.0, 1.0, 0.1]) / np.linalg.norm([0.0, 1.0, 0.1])
+            cams[:, :3] = (math.pi - np.logspace(-4, -1, f))[:, None] * axis
+            cams[:, 5] = -cams[:, 5]
+        k = K_HEADLINE
+        lanes = None
+    elif name == "ba_global":
+        cams = board_poses(FRAMES, seed, xz=True)
+        pts = rng.normal(size=(2000, 3)) * [3.0, 2.0, 3.0] + [3.0, 2.0, 2.0]
+        n = 12000
+        fidx, pidx = rng.integers(0, FRAMES, n), rng.integers(0, 2000, n)
+        mask = rng.random(n) < 0.97
+        weight = 1.2 ** -rng.integers(0, 4, n).astype(np.float64)
+        k = K_HEADLINE
+        lanes = None
+    elif name == "ba_lanes":
+        lanes, f, p, n = 8, 11, 400, 3000
+        cams = np.stack([board_poses(f, seed + v, xz=True) for v in range(lanes)])
+        pts = rng.normal(size=(lanes, p, 3)) * [3.0, 2.0, 3.0] + [3.0, 2.0, 2.0]
+        fidx, pidx = rng.integers(0, f, (lanes, n)), rng.integers(0, p, (lanes, n))
+        mask = np.arange(n)[None, :] < rng.integers(n // 2, n, lanes)[:, None]
+        weight = np.ones((lanes, n))
+        k = np.broadcast_to(K_HEADLINE, (lanes, 3, 3))
+    else:
+        raise ValueError(f"unknown BA case {name!r}")
+
+    def t(x, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
+
+    return BACase(t(cams), t(pts), t(k), t(fidx, torch.int64), t(pidx, torch.int64), t(mask, torch.bool),
+                  None if weight is None else t(weight))
+
+
+def ba_plain(cam, pts, intrinsics, fidx, pidx, mask, weight=None):
+    """The plain version of ``obs_jacobians`` at the wrapper's arguments
+    (``bundle_adjust._obs_jacobians_reference``, vmapped over lanes)."""
+    obs = torch.zeros(fidx.shape + (2,), dtype=cam.dtype, device=cam.device)
+    extra = () if weight is None else (weight,)
+    fn = bundle_adjust._obs_jacobians_reference
+    return (vmap(fn) if cam.ndim == 3 else fn)(cam, pts, intrinsics, obs, fidx, pidx, mask, *extra)
+
+
+def pnp_plain(poses, obj, img, k, iters: int = 10, damping: float = 1e-8):
+    """The plain version of ``pnp_refine``: ``pnp.refine_pose_reference`` on
+    every start, and its cost."""
+    t = poses.shape[0]
+    flat = pnp.refine_pose_reference(poses.reshape(-1, 6), obj, img.repeat(t, 1, 1), k, iters, damping)
+    cost = pnp._cost(flat, obj, img.repeat(t, 1, 1), k)
+    return flat.reshape(poses.shape), cost.reshape(poses.shape[:2])
+
+
+def jacobian_agreement(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor]) -> Dict[str, object]:
+    """Equal NaN patterns, and the largest |got - ref| over the finite
+    entries of each observation's Jacobian, relative to max(1, |J|) with
+    |J| the largest |entry| of the plain version's (2, 9) block [jc | jp]
+    of that observation: a rotation column's entry can be small by
+    cancellation between terms of the block's size, and float32 rounds
+    it at that scale in either version."""
+    g = torch.cat([got[0], got[1]], dim=-1).double()
+    r = torch.cat([ref[0], ref[1]], dim=-1).double().to(g.device)
+    nan_equal = torch.equal(g.isnan(), r.isnan())
+    scale = torch.nan_to_num(r, nan=0.0).abs().amax(dim=(-2, -1), keepdim=True).clamp(min=1.0)
+    d = torch.where(g.isnan() | r.isnan(), 0.0, (g - r).abs() / scale)
+    return {"nan_equal": bool(nan_equal), "max_rel": float(d.max()) if d.numel() else 0.0}
+
+
+def jacobians_agree(a: Dict[str, object], tol: float = JAC_TOL) -> bool:
+    return bool(a["nan_equal"] and a["max_rel"] <= tol)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| / max(1, |b|); NaN on both sides 0, on one side inf."""
+    a, b = a.double(), b.to(a.device).double()
+    d = (a - b).abs() / b.abs().clamp(min=1.0)
+    return torch.where(a.isnan() & b.isnan(), 0.0, torch.nan_to_num(d, nan=math.inf))
+
+
+def pnp_determined(plain32: torch.Tensor, plain64: torch.Tensor, tol: float = DETERMINED_TOL) -> torch.Tensor:
+    """(..., F) the starts float32 rounding does not decide: the plain
+    version's float32 pose within ``tol`` (relative) of the same call in
+    float64. Elsewhere ten Gauss-Newton steps from a start far off (a
+    twin in the wrong basin) amplify a rounding into another path."""
+    return _rel(plain32, plain64).amax(dim=-1) <= tol
+
+
+def pnp_agreement(got, ref, held: torch.Tensor) -> Dict[str, object]:
+    """How the kernel's (poses, costs) depart from the plain version's:
+    equal NaN patterns everywhere, the largest pose difference over the
+    ``held`` starts and, printed only, over the rest."""
+    d = (got[0].double() - ref[0].double()).abs()
+    d = torch.where(got[0].isnan() & ref[0].isnan(), 0.0, torch.nan_to_num(d, nan=math.inf)).amax(dim=-1)
+    held = held.to(d.device)
+    return {
+        "nan_equal": all(torch.equal(g.isnan(), r.isnan()) for g, r in zip(got, ref)),
+        "held": int(held.sum()), "starts": held.numel(),
+        "max_held": float(d[held].max()) if held.any() else 0.0,
+        "max_not_held": float(d[~held].max()) if (~held).any() else 0.0,
+    }
+
+
+def pnp_agrees(a: Dict[str, object], tol: float = POSE_TOL) -> bool:
+    return bool(a["nan_equal"] and a["held"] > 0 and a["max_held"] <= tol)
+
+
+def calib_determined(plain32, plain64, tol: float = DETERMINED_TOL) -> bool:
+    """Whether float32 rounding does not decide a calibration LM run: every
+    parameter and the cost of the plain float32 run within ``tol``
+    (relative, to max(1, |x|)) of the same run in float64."""
+    return bool(_rel(plain32[0], plain64[0]).max() <= tol and _rel(plain32[1], plain64[1]).max() <= tol)
+
+
+def calib_agreement(got, ref, n_intr: int, n_focal_pp: int, points: int, held: bool) -> Dict[str, object]:
+    """How the kernel's (theta, cost) depart from the plain version's: the
+    focal(s) and principal point and the rms sqrt(2 cost / points) by
+    relative difference, the distortion and poses by absolute."""
+    tg, tr = got[0].double(), ref[0].double().to(got[0].device)
+    rms_g, rms_r = (torch.sqrt(2.0 * c.double() / points) for c in (got[1], ref[1].to(got[1].device)))
+    rel = ((tg[:n_focal_pp] - tr[:n_focal_pp]).abs() / tr[:n_focal_pp].abs()).max()
+    return {
+        "held": held, "nan_equal": torch.equal(tg.isnan(), tr.isnan()) and bool(rms_g.isnan() == rms_r.isnan()),
+        "k_rel": float(rel), "rms_rel": float((rms_g - rms_r).abs() / rms_r.abs()),
+        "rest_abs": float((tg[n_focal_pp:] - tr[n_focal_pp:]).abs().max()),
+    }
+
+
+def calib_agrees(a: Dict[str, object]) -> bool:
+    """NaN patterns equal; where held, K and rms within ``CALIB_RTOL`` and
+    the distortion and poses within ``POSE_TOL``."""
+    if not a["nan_equal"]:
+        return False
+    return (not a["held"]) or (a["k_rel"] <= CALIB_RTOL and a["rms_rel"] <= CALIB_RTOL and a["rest_abs"] <= POSE_TOL)
+
+
+def _bound(flops: float, nbytes: float) -> Tuple[float, str]:
+    by_ops, by_bytes = flops / FP32_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes else "bytes")
+
+
+def ba_work(lanes: int, n_cam: int, n_pts: int, n_obs: int, itemsize: int = 4, weighted: bool = True,
+            active: Optional[int] = None) -> Dict[str, int]:
+    """Operations and bytes of one ``obs_jacobians`` launch with ``active``
+    observations in the mask over all lanes (all by default; see the
+    module's note)."""
+    active = lanes * n_obs if active is None else active
+    flops = lanes * n_cam * ROT_OPS + active * BA_OBS_OPS
+    nbytes = lanes * ((6 * n_cam + 3 * n_pts + 9) * itemsize + n_obs * (8 + 8 + 1 + (itemsize if weighted else 0))
+                      + n_obs * 18 * itemsize)
+    return {"flops": flops, "bytes": nbytes, "steps": 1}
+
+
+def pnp_work(twins: int, frames: int, n: int, iters: int = 10, itemsize: int = 4) -> Dict[str, int]:
+    """Operations and bytes of one ``pnp_refine`` launch."""
+    starts = twins * frames
+    flops = starts * (iters * (ROT_OPS + n * PNP_POINT_OPS + PNP_SOLVE_OPS) + ROT_VALUE_OPS + n * PNP_COST_OPS)
+    nbytes = (2 * starts * 6 + n * 3 + frames * n * 2 + 9 + starts) * itemsize
+    return {"flops": flops, "bytes": nbytes, "steps": 2 * iters + 1}
+
+
+def calib_cost_ops(num_dist: int) -> int:
+    """One point's share of a calibration cost: the distorted projection,
+    its residual and its square summed."""
+    return POINT_OPS + DIST_OPS[num_dist] + 4 + 2 + SUM_OPS
+
+
+def calib_row_ops(n_intr: int, num_dist: int) -> int:
+    """One point's rows of the calibration Jacobian and their sums (see the
+    module's note): d(u, v)/dp_c costs 6 without distortion, 18 with."""
+    entries = 27 + 7 * n_intr + n_intr * (n_intr + 1) // 2
+    dpc = 6 if num_dist == 0 else 18
+    return (POINT_OPS + DIST_OPS[num_dist] + 4 + 2 + DIST_JAC_OPS[num_dist] + dpc + ROT_COL_OPS
+            + DIST_COL_OPS * num_dist + SUM_OPS * entries)
+
+
+def calib_work(f: int, n: int, n_intr: int, num_dist: int, iterations: int, itemsize: int = 4,
+               views: Optional[int] = None) -> Dict[str, int]:
+    """Operations and bytes of one ``calib_lm`` launch over ``f`` views of
+    ``n`` points, ``views`` of them in the mask (all by default), that ran
+    ``iterations`` iterations."""
+    views = f if views is None else views
+    cost = views * (ROT_VALUE_OPS + n * calib_cost_ops(num_dist))
+    rows = views * (ROT_OPS + n * calib_row_ops(n_intr, num_dist))
+    schur_terms = 12 * (n_intr * (n_intr + 1) // 2 + n_intr)
+    per_view = 18 + CHOL6_OPS + (n_intr + 1) * TRSV6_OPS + schur_terms + 12 * n_intr + 6
+    intr = 3 * n_intr + n_intr**3 // 3 + n_intr + 2 * n_intr * n_intr + n_intr
+    trial = views * per_view + intr + cost
+    per_iter = rows + 2 * trial + LM_RULE_OPS
+    n_params = n_intr + 6 * f
+    nbytes = (2 * n_params + f * n * 2 + n * 3 + f + 1) * itemsize
+    return {"flops": cost + iterations * per_iter, "bytes": nbytes, "steps": 9 * iterations + 1}
+
+
+def _timed(kernel, plain, work) -> Dict[str, object]:
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain, reps=5)
+    bound, by = _bound(work["flops"], work["bytes"])
+    return {"ms": ms, "plain_ms": plain_ms, **work, "bound_ms": bound, "bound_by": by, "share": bound / ms}
+
+
+def time_ba(cam, pts, intrinsics, fidx, pidx, mask, weight=None) -> Dict[str, object]:
+    """Kernel and plain times of one ``obs_jacobians`` call (CUDA tensors)."""
+    args = (cam, pts, intrinsics, fidx, pidx, mask, weight)
+    lanes = cam.shape[0] if cam.ndim == 3 else 1
+    work = ba_work(lanes, cam.shape[-2], pts.shape[-2], fidx.shape[-1], cam.element_size(), weight is not None,
+                   int(mask.sum()))
+    out = _timed(lambda: bundle_adjust_cuda.obs_jacobians(*args), lambda: ba_plain(*args), work)
+    return dict(out, lanes=lanes, cameras=cam.shape[-2], points=pts.shape[-2], observations=fidx.shape[-1])
+
+
+def time_pnp(poses, obj, img, k, iters: int = 10, damping: float = 1e-8) -> Dict[str, object]:
+    """Kernel and plain times of one ``pnp_refine`` call (CUDA tensors)."""
+    args = (poses, obj, img, k, iters, damping)
+    work = pnp_work(poses.shape[0], poses.shape[1], obj.shape[0], iters, poses.element_size())
+    out = _timed(lambda: pnp_cuda.pnp_refine(*args), lambda: pnp_plain(*args), work)
+    return dict(out, twins=poses.shape[0], frames=poses.shape[1], points=obj.shape[0])
+
+
+def time_calib(*args) -> Dict[str, object]:
+    """Kernel and plain times of one ``calib_lm`` call (CUDA tensors, the
+    arguments of ``calibration.run_lm``), counted for the iterations it
+    ran."""
+    theta0, img, num_dist, mask = args[0], args[1], args[4], args[8]
+    _, _, iterations = calibration_cuda.calib_lm(*args)
+    n_intr = theta0.shape[0] - 6 * img.shape[0]
+    views = img.shape[0] if mask is None else int(mask.sum())
+    work = calib_work(img.shape[0], img.shape[1], n_intr, num_dist, int(iterations), img.element_size(), views)
+    out = _timed(lambda: calibration_cuda.calib_lm(*args), lambda: calibration.run_lm_reference(*args), work)
+    return dict(out, views=img.shape[0], points=img.shape[1], n_intr=n_intr, iterations=int(iterations))
+
+
+def describe(name: str, label: str, r: Dict[str, object]) -> str:
+    shape = {k: r[k] for k in ("lanes", "cameras", "points", "observations", "twins", "frames", "views", "n_intr",
+                               "iterations") if k in r}
+    return (f"{name} {label} {shape}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f} ms), {r['flops']} FLOP, "
+            f"{r['bytes']} B, bound {r['bound_ms']:.6f} ms by {r['bound_by']}, share {r['share']:.5f}; dependent "
+            f"steps {r['steps']}")
+
+
+def ptxas() -> str:
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for mod in (bundle_adjust_cuda, pnp_cuda, calibration_cuda):
+            out.append(cuda_build.compile_source(mod.SOURCE, Path(tmp) / "lib.so", (*mod.NVCC_EXTRA, "-Xptxas", "-v")))
+    return "\n".join(out)
+
+
+def main(argv: Optional[list] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ptxas", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("geometry_bench: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    if args.ptxas:
+        print(ptxas())
+    for name in ("ba_pose", "ba_global", "ba_lanes"):
+        print(describe("obs_jacobians", name, time_ba(*ba_case(name, dev))))
+    print(describe("pnp_refine", "pnp", time_pnp(*pnp_args(pnp_case(), dev))))
+    for name in ("calibrate", "calibrate_dist5"):
+        print(describe("calib_lm", name, time_calib(*lm_args(calib_case(name), dev))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,8 +26,9 @@ Each path runs four ways:
   1. cold: the first ``process`` of the process (the kernel libraries are
      built first if they are missing);
   2. warm, ``--warm-runs`` times: e2e seconds (median and quartiles), fps,
-     and each hand-written kernel's launches per run (CLAHE, LK and the
-     relative-pose refinement's counts);
+     and each hand-written kernel's launches per run (CLAHE, LK, the
+     relative-pose refinement, the BA Jacobians, the PnP refinement and the
+     calibration LM);
   3. once with ``MEATMODELER_SYNC_STAGES=1``: per-stage seconds that bill
      device work to the stage that queued it, and the peak allocation;
   4. once under ``torch.profiler``: device busy time (the union of kernel,
@@ -87,7 +88,7 @@ from meatmodeler_tpu_torch.config import (
     VolumeConfig,
 )
 from meatmodeler_tpu_torch import pipeline
-from meatmodeler_tpu_torch.geometry import projection, ransac, ransac_cuda, so3, triangulation
+from meatmodeler_tpu_torch.geometry import calibration_cuda, pnp_cuda, projection, ransac, ransac_cuda, so3, triangulation
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe, clahe_cuda, features, klt, klt_cuda
@@ -95,7 +96,7 @@ from meatmodeler_tpu_torch.parallel import sharded
 from meatmodeler_tpu_torch.parallel.batch import process_batch
 from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
 from meatmodeler_tpu_torch.pipeline import process
-from meatmodeler_tpu_torch.solvers import bundle_adjust
+from meatmodeler_tpu_torch.solvers import bundle_adjust, bundle_adjust_cuda
 from meatmodeler_tpu_torch.utils.alignment import umeyama
 
 REPO = Path(__file__).resolve().parents[2]
@@ -370,13 +371,14 @@ def headline_ba_problem(frames, corners, config):
 
 
 @contextlib.contextmanager
-def recording(module, name):
-    """Within the block, every call of ``module.name`` runs as before and
-    appends its (args, kwargs) to the list the block receives."""
+def recording(module, name, keep: bool = True):
+    """Within the block, every call of ``module.name`` (from any thread)
+    runs as before and appends its (args, kwargs) to the list the block
+    receives; without ``keep`` it appends None, and the list only counts."""
     calls, real = [], getattr(module, name)
 
     def call(*args, **kwargs):
-        calls.append((args, kwargs))
+        calls.append((args, kwargs) if keep else None)
         return real(*args, **kwargs)
 
     setattr(module, name, call)
@@ -498,14 +500,18 @@ def _timed_process(frames, corners, config):
     return _timed(lambda: process(frames, config=config, known_corners=corners, device="cuda"))
 
 
+# The hand-written kernels' wrappers, each with its launch counts.
+KERNEL_MODULES = (clahe_cuda, klt_cuda, ransac_cuda, bundle_adjust_cuda, pnp_cuda, calibration_cuda)
+
+
 def _reset_launches() -> None:
-    for m in (clahe_cuda, klt_cuda, ransac_cuda):
+    for m in KERNEL_MODULES:
         m.reset_launches()
 
 
 def _launches_per_run(runs: int) -> dict:
     """Each hand-written kernel's launches per run since ``_reset_launches``."""
-    return {k: v / max(runs, 1) for m in (clahe_cuda, klt_cuda, ransac_cuda) for k, v in m.LAUNCHES.items()}
+    return {k: v / max(runs, 1) for m in KERNEL_MODULES for k, v in m.LAUNCHES.items()}
 
 
 def _quartiles(walls) -> dict:
@@ -689,7 +695,7 @@ def main(argv=None) -> int:
         return 2
     config = headline_config()
     report = {"device": torch.cuda.get_device_name(0), "frames": HEADLINE_FRAMES}
-    report["library_prebuilt"] = all(m.LIBRARY.exists() for m in (clahe_cuda, klt_cuda, ransac_cuda))
+    report["library_prebuilt"] = all(m.LIBRARY.exists() for m in KERNEL_MODULES)
 
     if "known" in paths or "detector" in paths or "sharded" in paths:
         t0 = time.perf_counter()

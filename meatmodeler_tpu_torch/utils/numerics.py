@@ -24,7 +24,9 @@ __all__ = [
 # torch.func's forward-mode AD numbers its dual levels process-wide and
 # needs them closed in the order they were opened, so two host threads
 # inside ``jacfwd`` at once corrupt each other's levels. The multi-video
-# entry points run the geometry on two threads.
+# entry points run the geometry on two threads. Only the plain versions take
+# the lock: on the card the calibration LM, the PnP refinement, the BA
+# Jacobians and the relative-pose refinement are kernels.
 _FORWARD_AD_LOCK = threading.Lock()
 
 

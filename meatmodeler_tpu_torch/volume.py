@@ -228,11 +228,15 @@ def hull_and_carved_volume(
     vote_frac: float = 0.8,
     support_mask: Optional[torch.Tensor] = None,
     trim_ref: int = 0,
+    support_inflate: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hull_volume, carved_volume) from one carve: the hull is the
     symmetric completion of the silhouette-pruned, trimmed support cloud
     intersected with the carve (see the reference's docstring for why
-    neither half suffices alone)."""
+    neither half suffices alone). ``support_inflate`` > 0 pushes every
+    support plane out by that many median 6th-nearest-neighbour distances
+    of the support cloud (its sampling interval: feature points lie on
+    texture, inside the smooth limb)."""
     inside, centers, voxel_vol, sils = _carve_occupancy(
         points, mask, projections, proj_mask, image_size, resolution,
         dilation, grid_step, close_frac, vote_frac,
@@ -261,6 +265,17 @@ def hull_and_carved_volume(
     sup_seen = top_hi[:, depth]
     inf_seen = -top_lo[:, depth]
     support = torch.maximum(sup_seen, 2.0 * (occ_mean @ dirs.T) - inf_seen)
+    if support_inflate > 0:
+        big2 = 1e9
+        sqn = torch.sum(pts_f * pts_f, dim=1)
+        d2 = sqn[:, None] + sqn[None, :] - 2.0 * (pts_f @ pts_f.T)
+        d2 = torch.where(smask[None, :], d2, torch.full_like(d2, big2))
+        d2 = d2 + torch.where(torch.eye(pts_f.shape[0], dtype=torch.bool, device=d2.device), big2, 0.0)
+        k_nn = min(6, pts_f.shape[0])
+        kth = -torch.topk(-d2, k_nn, dim=1).values[:, -1]
+        dk = torch.sqrt(torch.clamp(kth, min=0.0))
+        dk_med = torch.nan_to_num(nanmedian(torch.where(smask, dk, torch.full_like(dk, torch.nan))), nan=0.0)
+        support = support + support_inflate * dk_med
 
     hull_vol = _count_inside(centers, dirs, support, occupied=inside) * voxel_vol
     return hull_vol, carve_vol

@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels (CLAHE, Lucas-Kanade, relative-pose
-refinement) against their plain PyTorch versions, and the paths that run them, on the card. Skipped
+refinement, and the board geometry's BA Jacobians, PnP refinement and
+calibration LM) against their plain PyTorch versions, and the paths that
+run them, on the card. Skipped
 without CUDA (the kernels have no CPU mode).
 
 This file imports no JAX, so it also runs where JAX is absent, without the
@@ -668,3 +670,188 @@ def test_band_shards_over_gpus(two_gpus):
     assert float((pts_b - pts_1).abs().max()) <= 5e-3
     with pytest.raises(ValueError, match="memory band"):
         bundle_adjust.adjust_points(*args, config=SolverConfig(hbm_strip_budget_bytes=strip // (len(two_gpus) + 1)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["ba_pose", "ba_global", "ba_lanes", "rvec0", "rvec1e-7", "rvec1e-3", "near_pi"])
+def test_obs_jacobians_kernel_matches_reference(cuda, case, dtype):
+    """The BA Jacobian kernel against its plain version at the callers'
+    shapes (the known path's pose-only and global problems, a batch of 8
+    lanes) and the rotation's edges (rvec 0, 1e-7, 1e-3, near pi):
+    elementwise within 1e-5 (float32; 1e-12 in float64) of max(1, |J|) of
+    the observation's block (``geometry_bench.jacobian_agreement``), NaN
+    patterns equal; one launch a call."""
+    from meatmodeler_tpu_torch.solvers import bundle_adjust, bundle_adjust_cuda
+    from meatmodeler_tpu_torch.tools.geometry_bench import ba_case, ba_plain, jacobian_agreement, jacobians_agree
+
+    args = ba_case(case, cuda, dtype)
+    before = bundle_adjust_cuda.LAUNCHES["obs_jacobians"]
+    got = bundle_adjust._obs_jacobians(args.cam, args.pts, args.intrinsics, None, args.fidx, args.pidx, args.mask,
+                                       args.weight)
+    assert bundle_adjust_cuda.LAUNCHES["obs_jacobians"] == before + 1
+    a = jacobian_agreement(got, ba_plain(*args))
+    assert jacobians_agree(a, 1e-5 if dtype == torch.float32 else 1e-12), a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pnp_kernel_matches_reference(cuda, dtype):
+    """The PnP kernel against its plain version at the known path's shape
+    (both twins of 22 frames, 12 corners): poses within 1e-4 on the starts
+    whose plain float32 result lies within 1e-5 of float64 (all of them in
+    float64), NaN patterns equal; ``refine_pose`` of one (6,) pose gives the
+    batch's first pose; one launch a ``solve_pnp_batch``."""
+    from meatmodeler_tpu_torch.geometry import pnp, pnp_cuda
+    from meatmodeler_tpu_torch.tools.geometry_bench import (
+        pnp_agreement, pnp_agrees, pnp_args, pnp_case, pnp_determined, pnp_plain,
+    )
+
+    args = pnp_args(pnp_case(), cuda, dtype)
+    got = pnp_cuda.pnp_refine(*args)
+    ref = pnp_plain(*args)
+    ref64 = pnp_plain(*(a.double() if isinstance(a, torch.Tensor) else a for a in args))
+    held = pnp_determined(ref[0], ref64[0]) if dtype == torch.float32 else torch.ones(ref[0].shape[:2], dtype=torch.bool)
+    a = pnp_agreement(got, ref, held)
+    assert pnp_agrees(a), a
+    one = pnp.refine_pose(args[0][0, 0], args[1], args[2][0], args[3])
+    assert one.shape == (6,)
+    torch.testing.assert_close(one, got[0][0, 0], rtol=0, atol=0)
+    plane, obj, img, k = (torch.from_numpy(x).to(cuda, dtype) for x in pnp_case())
+    before = pnp_cuda.LAUNCHES["pnp_refine"]
+    poses = pnp.solve_pnp_batch(plane, (0, 2), obj, img, k)
+    assert pnp_cuda.LAUNCHES["pnp_refine"] == before + 1 and poses.shape == (22, 6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["calibrate", "calibrate_dist5"])
+def test_calib_kernel_matches_reference(cuda, case):
+    """The calibration LM kernel against its plain version at the known
+    path's configuration (22 views, one focal, fixed centre, no distortion)
+    and at the general one (5 distortion coefficients, two focals, a free
+    centre, one masked view): in float64 K and the rms within 1e-4
+    relative, distortion and poses within 1e-4; in float32 the same where
+    the plain float32 run lies within 1e-5 of float64
+    (``geometry_bench.calib_determined``), equal NaN patterns everywhere.
+    One launch a run."""
+    from meatmodeler_tpu_torch.geometry import calibration, calibration_cuda
+    from meatmodeler_tpu_torch.tools.geometry_bench import (
+        calib_agreement, calib_agrees, calib_case, calib_determined, lm_args,
+    )
+
+    c = calib_case(case)
+    a32, a64 = lm_args(c, cuda), lm_args(c, cuda, torch.float64)
+    n_intr = a32[0].shape[0] - 6 * a32[1].shape[0]
+    n_fp = (1 if c["single_focal"] else 2) + (0 if c["fix_principal_point"] else 2)
+    points = int(np.sum(c["view_mask"]) if c["view_mask"] is not None else len(c["img"])) * c["img"].shape[1]
+    ref32, ref64 = calibration.run_lm_reference(*a32), calibration.run_lm_reference(*a64)
+    before = calibration_cuda.LAUNCHES["calib_lm"]
+    got32, got64 = calibration_cuda.calib_lm(*a32), calibration_cuda.calib_lm(*a64)
+    assert calibration_cuda.LAUNCHES["calib_lm"] == before + 2
+    a = calib_agreement(got64, ref64, n_intr, n_fp, points, True)
+    assert calib_agrees(a), a
+    a = calib_agreement(got32, ref32, n_intr, n_fp, points, calib_determined(ref32, ref64))
+    assert calib_agrees(a), a
+
+
+@pytest.mark.gpu
+def test_geometry_kernels_reject_bad_input(cuda):
+    """Mistyped, misshapen or mixed-device inputs raise before any launch."""
+    from meatmodeler_tpu_torch.geometry import calibration_cuda, pnp_cuda
+    from meatmodeler_tpu_torch.solvers import bundle_adjust_cuda
+    from meatmodeler_tpu_torch.tools.geometry_bench import ba_case, calib_case, lm_args, pnp_args, pnp_case
+
+    launches = (dict(bundle_adjust_cuda.LAUNCHES), dict(pnp_cuda.LAUNCHES), dict(calibration_cuda.LAUNCHES))
+    ba = list(ba_case("ba_global", cuda))
+    for i, bad in ((0, ba[0].double()), (1, ba[1][:, :2]), (3, ba[3].int()), (5, ba[5].float()), (2, ba[2].cpu())):
+        with pytest.raises(ValueError):
+            bundle_adjust_cuda.obs_jacobians(*ba[:i], bad, *ba[i + 1:])
+    pn = list(pnp_args(pnp_case(), cuda))
+    for i, bad in ((0, pn[0][0]), (1, pn[1].double()), (2, pn[2][:, :5]), (3, pn[3].cpu())):
+        with pytest.raises(ValueError):
+            pnp_cuda.pnp_refine(*pn[:i], bad, *pn[i + 1:])
+    lm = list(lm_args(calib_case(), cuda))
+    for i, bad in ((0, lm[0][:-1]), (1, lm[1].double()), (2, lm[2].cpu())):
+        with pytest.raises(ValueError):
+            calibration_cuda.calib_lm(*lm[:i], bad, *lm[i + 1:])
+    assert launches == (bundle_adjust_cuda.LAUNCHES, pnp_cuda.LAUNCHES, calibration_cuda.LAUNCHES)
+
+
+@pytest.mark.gpu
+def test_geometry_on_cuda_never_reaches_jacfwd(cuda, monkeypatch):
+    """``calibrate``, ``solve_pnp_batch``, ``solve_ba``, ``solve_ba_batch``
+    and ``pose_only_refine`` on CUDA tensors with ``jacfwd`` and the
+    forward-AD lock made to raise: every Jacobian comes from a kernel."""
+    from meatmodeler_tpu_torch.geometry import calibration, pnp, projection
+    from meatmodeler_tpu_torch.solvers import bundle_adjust
+    from meatmodeler_tpu_torch.tools.geometry_bench import calib_case, pnp_case
+    from meatmodeler_tpu_torch.utils import numerics
+
+    class Refuse:
+        def __call__(self, *args, **kwargs):
+            raise AssertionError("jacfwd reached on the card")
+
+        def __enter__(self):
+            raise AssertionError("the forward-AD lock taken on the card")
+
+        def __exit__(self, *exc):
+            return False
+
+    for mod in (calibration, pnp, bundle_adjust):
+        monkeypatch.setattr(mod, "jacfwd", Refuse())
+    monkeypatch.setattr(numerics, "_FORWARD_AD_LOCK", Refuse())
+    c = calib_case()
+    res = calibration.calibrate(torch.from_numpy(c["img"]).to(cuda), torch.from_numpy(c["obj"]).to(cuda),
+                                c["image_size"], num_dist=0, fix_principal_point=True, single_focal=True)
+    assert torch.isfinite(res.rms)
+    plane, obj, img, k = (torch.from_numpy(x).to(cuda) for x in pnp_case())
+    assert torch.isfinite(pnp.solve_pnp_batch(plane, (0, 2), obj, img, k)).all()
+    batch = bundle_adjust.BAProblem(*(x.to(cuda) for x in _ba_batch([(5, 60), (8, 90)])))
+    assert torch.isfinite(bundle_adjust.solve_ba_batch(batch).rmse).all()
+    one = bundle_adjust.BAProblem(*(x[0].to(cuda) for x in batch))
+    assert torch.isfinite(bundle_adjust.solve_ba(one).rmse)
+    cams = batch.cam_params[0, :3]
+    pts = batch.points[0, :40].expand(3, 40, 3)
+    obs = projection.project_points(pts, cams[:, None], batch.intrinsics[0])
+    out = bundle_adjust.pose_only_refine(cams + 0.01, pts, batch.intrinsics[0], obs, torch.ones(3, 40, dtype=torch.bool,
+                                                                                                  device=cuda))
+    torch.testing.assert_close(out, cams, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_board_poses_on_cuda_match_cpu(cuda):
+    """The known path's board geometry (``pipeline._board_poses``: sub-pixel
+    corners, calibration, planar PnP, pose-only BA) on the card, through
+    the three kernels, against the same run on the CPU: K and the two
+    rmse counters within 1e-3 relative (float32 LMs stop a rounding apart),
+    the refined extrinsics within 1e-2."""
+    from meatmodeler_tpu_torch import pipeline
+    from meatmodeler_tpu_torch.config import PipelineConfig
+    from meatmodeler_tpu_torch.geometry import calibration_cuda, pnp_cuda
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+    from meatmodeler_tpu_torch.solvers import bundle_adjust_cuda
+    from meatmodeler_tpu_torch.utils.profiling import Metrics
+
+    scene = TurntableScene(image_size=(400, 300), focal=420.0, noise_sigma=1.0)
+    frames, _, corners = render_sequence(scene, 40, seed=0)
+    pick = np.arange(0, 40, 5)
+    grey = frames[pick].astype(np.float32) @ np.array([0.114, 0.587, 0.299], np.float32)
+    kf_corners = [corners[i] for i in pick]
+    out = {}
+    before = (calibration_cuda.LAUNCHES["calib_lm"], pnp_cuda.LAUNCHES["pnp_refine"],
+              bundle_adjust_cuda.LAUNCHES["obs_jacobians"])
+    for dev in ("cpu", cuda):
+        metrics = Metrics()
+        ext, k, _ = pipeline._board_poses(PipelineConfig(), metrics, torch.from_numpy(grey).to(dev), kf_corners,
+                                          400, 300, 1, torch.device(dev))
+        out[str(dev)] = (ext.cpu(), k.cpu(), metrics.as_dict()["counters"])
+    after = (calibration_cuda.LAUNCHES["calib_lm"], pnp_cuda.LAUNCHES["pnp_refine"],
+             bundle_adjust_cuda.LAUNCHES["obs_jacobians"])
+    # Two LM runs in calibrate, a PnP launch in its rescue pass and one in
+    # the pose stage, at least one Jacobian launch in the pose-only BA.
+    assert after[0] - before[0] == 2 and after[1] - before[1] == 2 and after[2] > before[2]
+    (ext_c, k_c, c_c), (ext_g, k_g, c_g) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(k_g, k_c, rtol=1e-3, atol=0)
+    torch.testing.assert_close(ext_g, ext_c, rtol=0, atol=1e-2)
+    for name in ("calibration_rms_px", "pose_ba_rmse_px"):
+        np.testing.assert_allclose(c_g[name], c_c[name], rtol=1e-3)

@@ -175,6 +175,29 @@ def test_solve_pnp_batch(obj_cols):
     assert np.abs(reproj - views).max() < 1.0
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_refine_pose_single_pose(dtype):
+    """``refine_pose`` of one (6,) pose against (N, 2) pixels, as the JAX
+    package takes it, and the same start in the (F, 6) form: equal to JAX
+    within 1e-6 in float64 and 1e-4 in float32."""
+    rng = np.random.default_rng(13)
+    obj = np.asarray(jcal.chessboard_object_points((4, 3)), np.float64)
+    truth = np.array([[0.2, -0.1, 0.05, -1.5, -1.0, 12.0], [-0.3, 0.2, 0.1, -1.0, -1.5, 10.0],
+                      [0.1, 0.4, -0.2, -2.0, -0.5, 14.0]])
+    views = np.stack([np.asarray(jproj.project_points(jnp.asarray(obj), jnp.asarray(t)[None], jnp.asarray(K, np.float64)))
+                      for t in truth]) + rng.normal(scale=0.2, size=(3, 12, 2))
+    start = truth + rng.normal(scale=0.02, size=truth.shape)
+    obj, views, start, k = (np.asarray(x, dtype) for x in (obj, views, start, K))
+    ref = np.asarray(jpnp.refine_pose(jnp.asarray(start[0]), jnp.asarray(obj), jnp.asarray(views[0]), jnp.asarray(k)))
+    got = tpnp.refine_pose(*(torch.from_numpy(np.ascontiguousarray(x)) for x in (start[0], obj, views[0], k)))
+    assert got.shape == (6,) and got.dtype == torch.from_numpy(start).dtype
+    tol = 1e-6 if dtype == np.float64 else 1e-4
+    np.testing.assert_allclose(got.numpy(), ref, atol=tol)
+    batched = tpnp.refine_pose(*(torch.from_numpy(x) for x in (start, obj, views, k)))
+    assert batched.shape == (3, 6)
+    np.testing.assert_allclose(batched[0].numpy(), got.numpy(), atol=tol)
+
+
 def test_chessboard_object_points():
     np.testing.assert_array_equal(
         tcal.chessboard_object_points((4, 3)).numpy(), np.asarray(jcal.chessboard_object_points((4, 3)))

@@ -5,7 +5,12 @@
 numpy draws; ``jpeg`` raises naming cv2), ``utils.numerics.checked`` (raises
 where JAX's checkify raises, naming the operation; a finite run is
 unchanged), ``utils.profiling.trace`` / ``device_barrier``, and
-``so3.exp_log_consistent`` (within 1e-6)."""
+``so3.exp_log_consistent`` (within 1e-6). Then the reference's call forms:
+the single-image (H, W) functions against JAX on one image (within 1e-4
+relative to the output's scale; candidates and corners within 1e-3 px),
+``process``'s positional cv2 parameter dicts (the same ``config.keyframe``
+as JAX folds them into), and the keywords the port accepts and ignores
+(``exact_topk``, ``bin_weights``, ``topk_recall``: the same outputs)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -152,3 +157,110 @@ def test_exp_log_consistent():
     ref = np.asarray(jso3.exp_log_consistent(jnp.asarray(rvec)))
     got = tso3.exp_log_consistent(tt(rvec)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+def _board_image(seed=0, shape=(72, 96)):
+    """A seeded grey checkerboard (12-px squares) with noise, float32."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[: shape[0], : shape[1]]
+    img = np.where(((yy + 5) // 12 + (xx + 7) // 12) % 2 == 0, 200.0, 40.0)
+    return f32(img + rng.normal(scale=4.0, size=shape))
+
+
+def _single_image_calls():
+    from meatmodeler_tpu.ops import board_detect as jbd
+    from meatmodeler_tpu.ops import chessboard as jcb
+    from meatmodeler_tpu.ops import features as jfeat
+    from meatmodeler_tpu.ops import orb as jorb
+    from meatmodeler_tpu_torch.ops import board_detect as tbd
+    from meatmodeler_tpu_torch.ops import chessboard as tcb
+    from meatmodeler_tpu_torch.ops import features as tfeat
+    from meatmodeler_tpu_torch.ops import orb as torb
+
+    corners = f32([[18.6, 16.8], [31.2, 17.4], [43.1, 29.2], [54.6, 41.3]])
+    return {
+        "sobel": (jfeat.sobel, tfeat.sobel, ()),
+        "structure_tensor": (jfeat.structure_tensor, tfeat.structure_tensor, ()),
+        "min_eig_response": (jfeat.min_eig_response, tfeat.min_eig_response, ()),
+        "harris_response": (jfeat.harris_response, tfeat.harris_response, ()),
+        "fast_score": (jorb.fast_score, torb.fast_score, ()),
+        "saddle_response": (jbd.saddle_response, tbd.saddle_response, ()),
+        "saddle_candidates": (jbd.saddle_candidates, tbd.saddle_candidates, ()),
+        "refine_corners_subpix": (jcb.refine_corners_subpix, tcb.refine_corners_subpix, (corners,)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_single_image_calls()))
+def test_single_image_calls_match_jax(name):
+    """Each of these takes one (H, W) image as the JAX package documents it
+    (``refine_corners_subpix`` with (N, 2) corners) and returns the JAX
+    shapes and values."""
+    jfn, tfn, extra = _single_image_calls()[name]
+    img = _board_image()
+    ref = jfn(jnp.asarray(img), *(jnp.asarray(e) for e in extra))
+    got = tfn(tt(img), *(tt(e) for e in extra))
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    gots = got if isinstance(got, tuple) else (got,)
+    assert len(gots) == len(refs)
+    for g, r in zip(gots, refs):
+        r = np.asarray(r)
+        assert tuple(g.shape) == r.shape
+        if r.dtype == bool:
+            np.testing.assert_array_equal(g.numpy(), r)
+        elif name in ("saddle_candidates", "refine_corners_subpix"):
+            np.testing.assert_allclose(g.numpy(), r, atol=1e-3, rtol=1e-4)
+        else:
+            np.testing.assert_allclose(g.numpy(), r, atol=1e-4 * max(1.0, float(np.abs(r).max())), rtol=0)
+
+
+def test_process_takes_reference_param_dicts(monkeypatch):
+    """``process(video, path, lk_params, feature_params, flann_params,
+    config, ...)`` positionally, as the JAX package's signature has it:
+    the cv2 dicts reach the same ``config.keyframe`` as JAX's
+    ``_config_from_param_dicts`` makes of them; ``flann_params`` is
+    ignored; ``device`` stays a keyword."""
+    from meatmodeler_tpu import pipeline as jpipe
+    from meatmodeler_tpu.config import DEFAULT_CONFIG as JAX_DEFAULT
+    from meatmodeler_tpu_torch import pipeline as tpipe
+    from meatmodeler_tpu_torch.testing import from_fields
+
+    lk = {"winSize": (17, 17), "maxLevel": 2, "criteria": (3, 25, 0.02)}
+    feat = {"maxCorners": 77, "qualityLevel": 0.05, "minDistance": 9, "blockSize": 5}
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def capture(video, config, *args, **kwargs):
+        seen["config"] = config
+        raise Stop
+
+    monkeypatch.setattr(tpipe, "_reconstruct_to_ba", capture)
+    frames = np.zeros((2, 32, 32, 3), np.uint8)
+    corners = np.zeros((2, 12, 2), np.float32)
+    with pytest.raises(Stop):
+        tpipe.process(frames, None, lk, feat, {"algorithm": 1}, tpipe.DEFAULT_CONFIG, corners, device="cpu")
+    want = from_fields(jpipe._config_from_param_dicts(JAX_DEFAULT, lk, feat))
+    assert seen["config"].keyframe == want.keyframe
+    assert seen["config"] == want
+
+
+def test_reference_keywords_are_accepted():
+    """``exact_topk`` on ``good_features``, ``saddle_candidates`` and
+    ``find_chessboard_device``, and ``bin_weights`` / ``topk_recall`` on
+    ``detect_and_compute`` in the JAX positions: accepted, outputs
+    unchanged."""
+    from meatmodeler_tpu_torch.ops import board_detect as tbd
+    from meatmodeler_tpu_torch.ops import features as tfeat
+    from meatmodeler_tpu_torch.ops import orb as torb
+
+    img = tt(_board_image(1, (96, 128)))
+
+    def same(a, b):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+    same(tfeat.good_features(img, 32, 0.01, 7, 7, True), tfeat.good_features(img, 32))
+    same(tbd.saddle_candidates(img, 24, 7, 0.1, True), tbd.saddle_candidates(img))
+    same(tbd.find_chessboard_device(img, (4, 3), 24, 8, 3.0, 7, True), tbd.find_chessboard_device(img, hyp_candidates=8))
+    same(torb.detect_and_compute(img, 64, 1, 1.2, 20.0, None, 0.9), torb.detect_and_compute(img, 64, 1))
