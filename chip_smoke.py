@@ -19,8 +19,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      seeded textures at the three callers' settings: the scan's (180, 320)
      and the odometry's (720, 1280), 128 points, win 21, 4 levels, 10
      iterations, and two_view's (540, 960, win 15, one level, seeded at the
-     match offset); then a flat image, masked points, and points on, beyond
-     and far outside the border and NaN;
+     match offset); then a flat image, masked points, points on, beyond
+     and far outside the border and NaN, 129 points, and the edge points
+     at win 31 through 8 levels;
   3c. hold the relative-pose refinement kernel against its plain version
      (NaN patterns equal; within 1e-4 on the candidates float32 rounding
      does not decide, those where the plain version lies within 1e-5 of
@@ -29,8 +30,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      ``tools/relpose_bench.determined`` says why) on seeded two-view scenes
      at the callers' shapes: 16 and 8 candidates at 128 points (odometry),
      16 at 8192 slots with 40% masked and 20% outliers (the marker-free
-     bootstrap), 8 at 4096 with 96% padding (two-view); then starts at
-     rvec 0, 1e-7 and 1e-5, near pi, zero tvec, and an empty mask;
+     bootstrap), 8 at 4096 with 96% padding (two-view), 24 at 128 and 24 at
+     8192 slots with ~421 in the mask (one launch of the odometry and of
+     the bootstrap); then starts at rvec 0, 1e-7 and 1e-5, near pi, zero
+     tvec, an empty mask, 8192 slots (~421 in the mask) with a NaN or
+     1e20 coordinates in masked-out slots, and 12288 slots (the compacted
+     points in global scratch, beyond shared memory);
   3d. hold the board geometry's three kernels against their plain versions
      on seeded boards and BA problems (``tools/geometry_bench``), float32
      and float64: the BA Jacobians elementwise within 1e-5 (float64 1e-12)
@@ -85,14 +90,16 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      ``calib_lm`` nor ``pnp_refine`` runs; the Jacobian kernel is compared
      as in 3d at the first run's first pose-only refinement and first
      in-chain BA; each run's bootstrap launches
-     ``refine_relpose`` exactly twice (its essential candidates and its
-     homography's), and the kernel is compared as in 3c at the first run's
-     two calls and timed at the first; then the automatic fallback, the
+     ``refine_relpose`` exactly once (its essential and homography
+     candidates together), and the kernel is compared as in 3c at the
+     first run's call and timed there; then the automatic fallback, the
      same clip once through ``detector_config(headline_config())`` with no
      corners: the device hunt must give up (``board_probe_exhausted`` >=
      ``board_probe_frames``), the run come out marker-free and launch
-     ``refine_relpose`` twice, the Jacobian kernel compared at its chain's
-     calls as before; last, the CLAHE kernels at this path's
+     ``refine_relpose`` once, the Jacobian kernel compared at its chain's
+     calls as before, the Lucas-Kanade kernel at its scan's first call
+     between two frames and the refinement at its bootstrap's call; last,
+     the CLAHE kernels at this path's
      keyframe input (n_kf, 360, 640), compared and timed;
   7. the multi-video batch, the JAX package's batch row: 8 clips of 60
      frames, 1080p, seeds 100-107, rendered on the card, through
@@ -115,15 +122,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      as in 4, then the same two through ``process`` one after the
      other; seconds and rmse of both are printed;
   9. odometry: ``chain_poses`` over the board-free clip of phase 6 with the
-     scene's K (launch counts reset just before), one ``lk_track`` and two
-     ``refine_relpose`` launches per step: more than 50 points
+     scene's K (launch counts reset just before), one ``lk_track`` and one
+     ``refine_relpose`` launch per step: more than 50 points
      tracked in every step and a chained-rotation error under 6 degrees
      over the first 10 steps (the JAX package's test bound); the drift over
      the clip is printed; its first 20 steps once more with the plain
      refinement on the card, and each step's rotation difference against
      the kernel run printed; then ``two_view.reconstruct_two_view`` on two of
-     its frames (launch counts reset just before): one ``lk_track`` and two
-     ``refine_relpose`` launches, at least 50 inliers, finite points; the
+     its frames (launch counts reset just before): one ``lk_track`` and one
+     ``refine_relpose`` launch, at least 50 inliers, finite points; the
      Lucas-Kanade and refinement kernels compared and timed at both paths'
      own inputs (the odometry's first step, the two-view's matches); then
      the CLAHE kernels compared
@@ -209,9 +216,12 @@ from meatmodeler_tpu_torch.tools.klt_bench import (
     lk_kernel,
     time_lk,
 )
+from meatmodeler_tpu_torch.tools.path_calls import lk_call_case, relpose_call_case
 from meatmodeler_tpu_torch.tools.relpose_bench import (
     CALLERS as RELPOSE_CALLERS,
     EDGE_CASES as RELPOSE_EDGES,
+    PADDED_CASES as RELPOSE_PADDED,
+    WIDE_CASE as RELPOSE_WIDE,
     caller_case,
     determined,
     relpose_agreement,
@@ -289,7 +299,7 @@ SHARDED_BA = ((sharded, "solve_ba_point_sharded"),)
 GEOMETRY_RMSE_RTOL = 1e-3  # a path's calibration and pose-BA rms, kernels against plain versions
 CLAHE = ("clahe_lut", "clahe_apply")
 # Phase 3b's seeded Lucas-Kanade cases (``tools/klt_bench.lk_case``).
-LK_CASES = ("scan", "odometry", "two_view", "flat", "masked", "scan_edges", "two_view_edges")
+LK_CASES = ("scan", "odometry", "two_view", "flat", "masked", "scan_edges", "two_view_edges", "ragged", "deep_edges")
 RELPOSE_TOL = 1e-4  # on the candidates float32 rounding does not decide
 ODOMETRY_PLAIN_STEPS = 20
 
@@ -526,16 +536,6 @@ def compare_lk(cases, err):
         err["lk_track"] = max(err["lk_track"], a["max_point"])
 
 
-def lk_call_case(call):
-    """A recorded ``klt.lucas_kanade`` call as a (prev, curr, points, mask,
-    initial flow, settings) case."""
-    bound = inspect.signature(klt.lucas_kanade).bind(*call[0], **call[1])
-    bound.apply_defaults()
-    a = bound.arguments
-    s = {k: a[k] for k in ("win", "levels", "max_iters", "eps")}
-    return a["prev_pyr"], a["curr_pyr"], a["points"], a["point_mask"], a["initial_flow"], s
-
-
 def time_lk_at(label, case, timings):
     timings[label] = time_lk(*case)
     print("time " + describe(label, timings[label]))
@@ -569,17 +569,6 @@ def compare_relpose(cases, err):
         held, total = held + a["held"], total + a["candidates"]
     if 4 * held < total:
         raise AssertionError(f"only {held} of {total} refinement candidates were held: the check says too little")
-
-
-def relpose_call_case(call):
-    """A recorded ``ransac.refine_relative_pose`` call as its (rvec, tvec,
-    pts1, pts2, mask, K) on the card, with the default iterations."""
-    bound = inspect.signature(ransac.refine_relative_pose_reference).bind(*call[0], **call[1])
-    bound.apply_defaults()
-    a = bound.arguments
-    if a["iters"] != 15:
-        raise AssertionError(f"a caller asked for {a['iters']} refinement iterations, not 15")
-    return tuple(a[k] for k in ("rvec", "tvec", "pts1", "pts2", "mask", "intrinsics"))
 
 
 def time_relpose_at(label, args, timings):
@@ -847,8 +836,8 @@ def run_markerless(scene, frames, poses, err):
     launches = counts()
     if min(launches[k] for k in CLAHE) <= 0:
         raise AssertionError(f"a kernel of the markerless path never launched: {launches}")
-    if launches["refine_relpose"] != 4:
-        raise AssertionError(f"the bootstrap did not launch refine_relpose twice a run: {launches}")
+    if launches["refine_relpose"] != 2:
+        raise AssertionError(f"the bootstrap did not launch refine_relpose once a run: {launches}")
     check_geometry("markerless", launches, calls, board=False)
     compare_first_jacobians("markerless", CHAIN_BA, ba_first, err)
     return launches, c
@@ -907,8 +896,8 @@ def run_fallback(frames):
         raise AssertionError(f"board hunt stopped early: {c.get('board_probe_exhausted')}")
     if not np.isfinite(res.reprojection_rmse):
         raise AssertionError("fallback rmse is not finite")
-    if ransac_cuda.LAUNCHES["refine_relpose"] != 2:
-        raise AssertionError(f"the fallback's bootstrap did not launch refine_relpose twice: {counts()}")
+    if ransac_cuda.LAUNCHES["refine_relpose"] != 1:
+        raise AssertionError(f"the fallback's bootstrap did not launch refine_relpose once: {counts()}")
 
 
 def check_clip(res, scene):
@@ -1004,7 +993,7 @@ def run_pipelined(scene, clips, corners, err):
 
 def run_odometry(scene, frames, poses):
     """Phase 9a: ``chain_poses`` over the board-free clip, one ``lk_track``
-    and two ``refine_relpose`` launches per step. Returns (its launches,
+    and one ``refine_relpose`` launch per step. Returns (its launches,
     its result)."""
     reset_counts()
     t0 = time.perf_counter()
@@ -1026,8 +1015,8 @@ def run_odometry(scene, frames, poses):
         raise AssertionError(f"a kernel did not launch for every frame of the odometry: {launches}")
     if launches["lk_track"] != len(frames) - 1:
         raise AssertionError(f"lk_track did not launch once per odometry step: {launches}")
-    if launches["refine_relpose"] != 2 * (len(frames) - 1):
-        raise AssertionError(f"refine_relpose did not launch twice per odometry step: {launches}")
+    if launches["refine_relpose"] != len(frames) - 1:
+        raise AssertionError(f"refine_relpose did not launch once per odometry step: {launches}")
     return launches, res
 
 
@@ -1073,8 +1062,8 @@ def run_two_view(scene, frames):
         raise AssertionError(f"two-view reconstruction failed: {n_in} inliers")
     if launches["lk_track"] != 1:
         raise AssertionError(f"lk_track did not launch once in reconstruct_two_view: {launches}")
-    if launches["refine_relpose"] != 2:
-        raise AssertionError(f"refine_relpose did not launch twice in reconstruct_two_view: {launches}")
+    if launches["refine_relpose"] != 1:
+        raise AssertionError(f"refine_relpose did not launch once in reconstruct_two_view: {launches}")
     return launches
 
 
@@ -1238,7 +1227,8 @@ def main() -> int:
     compare_lk([(c, lk_case(c, dev)) for c in LK_CASES], err)
     # Phase 3c: the refinement kernel against its plain version on seeded scenes.
     compare_relpose([(c[0], to_device(caller_case(c[0]), dev)) for c in RELPOSE_CALLERS]
-                    + [(c, to_device(relpose_case(c), dev)) for c in RELPOSE_EDGES], err)
+                    + [(c, to_device(relpose_case(c), dev)) for c in (*RELPOSE_EDGES, *RELPOSE_PADDED, RELPOSE_WIDE)],
+                    err)
     # Phase 3d: the board geometry's kernels against their plain versions.
     compare_geometry_seeded(dev, err)
 
@@ -1299,11 +1289,11 @@ def main() -> int:
     with recording(ransac, "refine_relative_pose") as calls:
         launches_m, c = run_markerless(mscene, mframes, mposes, err)
     add_counts(launches, launches_m)
-    # The first run's bootstrap: its essential candidates, then its homography's.
-    bootstrap = [relpose_call_case(call) for call in calls[:2]]
+    # The first run's bootstrap: its essential and homography candidates in one call.
+    bootstrap = relpose_call_case(calls[0])
     del calls
-    compare_relpose([("bootstrap essential", bootstrap[0]), ("bootstrap homography", bootstrap[1])], err)
-    time_relpose_at("bootstrap", bootstrap[0], relpose_timings)
+    compare_relpose([("bootstrap", bootstrap)], err)
+    time_relpose_at("bootstrap", bootstrap, relpose_timings)
     del bootstrap
     mconfig = markerless_config()
     p2s = mconfig.pass2_downscale
@@ -1312,9 +1302,15 @@ def main() -> int:
     compare_kernels(dev, [("marker-free keyframes", kf_grey, (8, 8))], err)
     time_at("marker-free keyframes", kf_grey, timings)
     reset_counts()
-    with first_calls_within(OBS_JACOBIANS, *CHAIN_BA) as ba_first, geometry_counts() as geometry_calls:
+    with first_calls_within(OBS_JACOBIANS, *CHAIN_BA) as ba_first, geometry_counts() as geometry_calls, \
+            recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines:
         run_fallback(mframes)
     launches_f = counts()
+    # Its scan's first call between two frames, and its bootstrap's refinement.
+    fallback_lk = next(case for case in map(lk_call_case, calls) if not torch.equal(case[0][0], case[1][0]))
+    compare_lk([("fallback scan input", fallback_lk)], err)
+    compare_relpose([("fallback bootstrap", relpose_call_case(refines[0]))], err)
+    del calls, refines, fallback_lk
     check_geometry("fallback", launches_f, geometry_calls, board=False)
     if min(launches_f[k] for k in KERNELS if k not in ("pnp_refine", "calib_lm")) <= 0:
         raise AssertionError(f"a kernel of the fallback path never launched: {launches_f}")
@@ -1349,7 +1345,7 @@ def main() -> int:
         launches_o, odo = run_odometry(mscene, mframes, mposes)
     check_geometry("odometry", launches_o, geometry_calls, board=False, chain=False)
     add_counts(launches, launches_o)
-    odometry_lk, odometry_refine = lk_call_case(calls[0]), [relpose_call_case(r) for r in refines[:2]]
+    odometry_lk, odometry_refine = lk_call_case(calls[0]), relpose_call_case(refines[0])
     del refines
     odometry_plain(mscene, mframes, odo)
     with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines, \
@@ -1358,16 +1354,14 @@ def main() -> int:
     check_geometry("two-view", launches_t, geometry_calls, board=False, chain=False)
     add_counts(launches, launches_t)
     lk_cases = [("odometry step 1", odometry_lk), ("two-view matches", lk_call_case(calls[0]))]
-    two_view_refine = [relpose_call_case(r) for r in refines]
+    two_view_refine = relpose_call_case(refines[0])
     del calls, refines
     compare_lk(lk_cases, err)
     for label, case in lk_cases:
         time_lk_at(label, case, lk_timings)
-    compare_relpose([("odometry step 1 essential", odometry_refine[0]),
-                     ("odometry step 1 homography", odometry_refine[1]),
-                     ("two-view essential", two_view_refine[0]), ("two-view homography", two_view_refine[1])], err)
-    time_relpose_at("odometry step 1", odometry_refine[0], relpose_timings)
-    time_relpose_at("two-view", two_view_refine[0], relpose_timings)
+    compare_relpose([("odometry step 1", odometry_refine), ("two-view", two_view_refine)], err)
+    time_relpose_at("odometry step 1", odometry_refine, relpose_timings)
+    time_relpose_at("two-view", two_view_refine, relpose_timings)
     del odometry_refine, two_view_refine
     frame = torch.from_numpy(np.ascontiguousarray(mframes[:1])).to(dev).float()
     compare_kernels(dev, [("odometry frame", frame, (8, 8)), ("batch-clip keyframes", batch_kf, (8, 8))], err)

@@ -4,8 +4,9 @@
 Same algorithms as the reference: thousands of 8-point (or 4-point
 homography) hypotheses solved at once as batched eigen/SVD problems, all
 scored against all matches in one batched pass, the best picked by
-``argmax``; the LO-RANSAC relative pose decomposes, refines and re-scores
-its top candidates and the homography's 8 decompositions as one batch each.
+``argmax``; the LO-RANSAC relative pose decomposes its top candidates and
+the homography's 8 decompositions, refines them as one batch and re-scores
+them.
 On the card that refinement (:func:`refine_relative_pose`) is one launch of
 a hand-written CUDA kernel (``ransac_cuda``, ``csrc/relpose.cu``); on the CPU
 it is the plain version, :func:`refine_relative_pose_reference`. Nothing
@@ -442,16 +443,17 @@ def estimate_relative_pose(
     es_top = es[top_idx]
     inl_top = (_sampson(es_top, x1, x2) < thr2) & mask
     rvs, tvs, _ = recover_pose(es_top, pts1, pts2, inl_top, intrinsics)
-    rvs, tvs = refine_relative_pose(rvs, tvs, pts1, pts2, mask, intrinsics)
 
     # Planar-degeneracy escape hatch (ORB-SLAM's dual H/F bootstrap).
     h_res = find_homography_ransac(pts1, pts2, mask, generator, threshold=3.0)
     rv_h, tv_h = _decompose_homography(h_res.matrix, intrinsics)
-    rv_h, tv_h = refine_relative_pose(
-        torch.nan_to_num(rv_h), torch.nan_to_num(tv_h), pts1, pts2, mask, intrinsics
+    # Both families refined in one call (one launch on the card): each
+    # candidate is refined on its own, and the refinement draws nothing, so
+    # the draws keep their order.
+    rvs, tvs = refine_relative_pose(
+        torch.cat([rvs, torch.nan_to_num(rv_h)]), torch.cat([tvs, torch.nan_to_num(tv_h)]),
+        pts1, pts2, mask, intrinsics,
     )
-    rvs = torch.cat([rvs, rv_h])
-    tvs = torch.cat([tvs, tv_h])
 
     # Score every candidate by triangulated reprojection (CheckRT-style):
     # the Sampson cost is blind to planar-degenerate impostors.

@@ -1,9 +1,10 @@
 """Bind and launch the pyramidal Lucas-Kanade CUDA kernel (``csrc/klt.cu``).
 
 One launch tracks every point of a ``klt.lucas_kanade`` call through every
-level. The library is built and loaded by ``ops/cuda_build.py`` (nvcc for
-``sm_90a`` at first use, ctypes), with ``-fmad=false`` so that each product
-and sum rounds as the plain version's do. Nothing is built at import; a
+level (a block a point, one barrier an iteration). The library is built
+and loaded by ``ops/cuda_build.py`` (nvcc for ``sm_90a`` at first use,
+ctypes), with ``-fmad=false`` so that each product and sum rounds as the
+plain version's do. Nothing is built at import; a
 failed build or launch raises. ``LAUNCHES`` counts the kernel's launches.
 """
 

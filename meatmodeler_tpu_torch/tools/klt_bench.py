@@ -1,6 +1,6 @@
 """Time the Lucas-Kanade CUDA kernel against its bound on one GPU.
 
-    python3 -m meatmodeler_tpu_torch.tools.klt_bench [--ptxas]
+    python3 -m meatmodeler_tpu_torch.tools.klt_bench [--ptxas] [--compare SOURCE [--paths]]
 
 At the three callers' settings on seeded blob textures (the keyframe scan,
 (180, 320), and the odometry, (720, 1280): 128 points, 4 levels, win 21,
@@ -24,22 +24,29 @@ sampled, and at level 0 the two error windows of each tracked point, all
 clamped into the level as the kernel reads them; then the points, mask and
 offsets read once and the outputs written once. The bound is the larger of
 operations at 67 TFLOP/s (float32 outside the tensor cores) and bytes at
-3.35 TB/s. The kernel's time is a chain of dependent steps per level
-(template, G reduction, then one gather-reduce-solve step per iteration);
-``steps`` gives that chain's length for the slowest point at each level,
-coarsest first.
+3.35 TB/s. The kernel's time is a chain of dependent steps of the point's
+block per level (the template's staging, the G reduction, then one
+gather-reduce-solve step per iteration, one block barrier each); ``steps``
+(``lk_work``) gives that chain's length for the slowest point at each
+level, coarsest first.
 
-  --ptxas  compiles ``csrc/klt.cu`` once more with ``-Xptxas -v`` and
-           prints the kernel's registers, shared memory and spills.
+  --ptxas    compiles ``csrc/klt.cu`` once more with ``-Xptxas -v`` and
+             prints the kernel's registers, shared memory and spills.
+  --compare  builds another ``klt.cu`` with the same C interface (an
+             earlier design) and times both libraries' kernels at the same
+             inputs in turns: other, this, this, other; with ``--paths``
+             also at the first calls the video-alone scan, the odometry and
+             two-view make (``tools/path_calls.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import sys
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -51,6 +58,7 @@ from meatmodeler_tpu_torch.tools.clahe_bench import HBM_BYTES_PER_S, time_ms
 FP32_FLOPS_PER_S = 67e12  # one H100 SXM, float32 outside the tensor cores
 SCAN = dict(win=21, levels=4, max_iters=10, eps=0.01)
 TWO_VIEW = dict(win=15, levels=1, max_iters=30, eps=0.01)
+DEEP = dict(win=klt_cuda.MAX_WIN, levels=klt_cuda.MAX_LEVELS, max_iters=10, eps=0.01)
 # (label, image shape, settings, points, true shift)
 CALLERS = [
     ("scan", (180, 320), SCAN, 128, (3.4, -2.2)),
@@ -82,12 +90,19 @@ def lk_case(case: str, device):
     settings) of a named case: a caller of ``CALLERS`` on its seeded
     textures, or an edge case of the scan's settings (``flat``: one value
     everywhere, so every G is singular; ``masked``: half the points
-    masked) or of a caller's (``<caller>_edges``: the 19 points of
+    masked; ``ragged``: 129 points, one past a multiple of every block
+    size a design might pick)
+    or of a caller's (``<caller>_edges``: the 19 points of
     ``testing.lk_edge_points`` before 16 of its own, one NaN offset where
-    it takes offsets)."""
+    it takes offsets), or ``deep_edges``: the odometry's frames and the
+    edge points at the largest window and depth the kernel takes (win 31,
+    8 levels)."""
     base = case[: -len("_edges")] if case.endswith("_edges") else case
+    base = "odometry" if base == "deep" else base
     _, shape, s, n, shift = next((c for c in CALLERS if c[0] == base), CALLERS[0])
-    prev, curr, pts, mask, flow = seeded_case(shape, s, n, shift, device)
+    if case == "deep_edges":
+        s = dict(DEEP)
+    prev, curr, pts, mask, flow = seeded_case(shape, s, 129 if case == "ragged" else n, shift, device)
     if case == "flat":
         prev, curr = [torch.full_like(p, 135.0) for p in prev], [torch.full_like(p, 135.0) for p in curr]
     if case == "masked":
@@ -187,11 +202,13 @@ def _covered(h: int, w: int, rects: torch.Tensor) -> int:
 
 
 def lk_work(shapes, points, win: int, iterations, path, tracked, status, with_flow: bool) -> Dict[str, int]:
-    """Operations and bytes one call needed (see the module's note):
-    ``shapes`` the used levels' (H, W), level 0 first; ``points`` (N, 2)
-    the call's; ``iterations`` (N, levels) and ``path`` (N, levels,
-    max_iters, 2) from the kernel; ``tracked`` (N, 2) and ``status`` (N,)
-    its result."""
+    """Operations and bytes one call needed (see the module's note), and
+    the dependent steps of the slowest point at each level, coarsest first
+    (the template's staging and the G reduction, then one step an
+    iteration): ``shapes`` the used levels' (H, W), level 0 first;
+    ``points`` (N, 2) the call's; ``iterations`` (N, levels) and ``path``
+    (N, levels, max_iters, 2) from the kernel; ``tracked`` (N, 2) and
+    ``status`` (N,) its result."""
     points, iterations, path, tracked, status = (t.cpu() for t in (points, iterations, path, tracked, status))
     n, levels = iterations.shape
     px, tpl = win * win, (win + 2) * (win + 2)
@@ -208,7 +225,8 @@ def lk_work(shapes, points, win: int, iterations, path, tracked, status, with_fl
             curr.append(_reads(tracked[status], win + 1, win, h, w))
         pixels += _covered(h, w, torch.cat(prev)) + _covered(h, w, torch.cat(curr))
     nbytes = 4 * pixels + n * (8 + 1 + (8 if with_flow else 0)) + n * (8 + 1 + 4)
-    return {"flops": flops, "bytes": nbytes}
+    steps = [2 + int(c) for c in iterations.flip(1).max(dim=0).values] if n else []
+    return {"flops": flops, "bytes": nbytes, "steps": steps}
 
 
 def time_lk(prev, curr, pts, mask, flow, settings) -> Dict[str, object]:
@@ -221,13 +239,10 @@ def time_lk(prev, curr, pts, mask, flow, settings) -> Dict[str, object]:
     ms = time_ms(lambda: klt.lucas_kanade(prev, curr, pts, point_mask=mask, initial_flow=flow, **settings))
     plain = time_ms(lambda: klt.lucas_kanade_reference(prev, curr, pts, point_mask=mask, initial_flow=flow, **settings))
     bound = max(by_ops, by_bytes)
-    per_level = iterations.flip(1)  # coarsest level first
     return {
         "ms": ms, "plain_ms": plain, **work, "bound_ms": bound,
         "bound_by": "operations" if by_ops >= by_bytes else "bytes", "share": bound / ms,
-        # template + G reduction, then one step an iteration, for the slowest point
-        "steps": [2 + int(c) for c in per_level.max(dim=0).values],
-        "mean_iterations": [float(c) for c in per_level.float().mean(dim=0)],
+        "mean_iterations": [float(c) for c in iterations.flip(1).float().mean(dim=0)],
         "shape": list(prev[0].shape), "points": len(pts),
     }
 
@@ -243,9 +258,69 @@ def ptxas() -> str:
         return cuda_build.compile_source(klt_cuda.SOURCE, Path(tmp) / "lib.so", (*klt_cuda.NVCC_EXTRA, "-Xptxas", "-v"))
 
 
+def raw_launch(lib: ctypes.CDLL, case) -> Callable[[], None]:
+    """One launch of ``lib``'s kernel on a (prev, curr, points, mask,
+    initial flow, settings) case with no checks or counting, for timing two
+    builds of the same C interface alike."""
+    prev, curr, pts, mask, flow, s = case
+    klt_cuda._bind(lib)
+    levels, n = min(s["levels"], len(prev)), len(pts)
+    pts = pts.to(torch.float32).contiguous()
+    mask = (torch.ones(n, dtype=torch.bool, device=pts.device) if mask is None else mask).contiguous()
+    flow = None if flow is None else flow.to(torch.float32).contiguous()
+    out = (torch.empty((n, 2), device=pts.device), torch.empty(n, dtype=torch.bool, device=pts.device),
+           torch.empty(n, device=pts.device))
+    ptr = ctypes.c_void_p
+    args = (
+        (ptr * levels)(*[t.data_ptr() for t in prev[:levels]]), (ptr * levels)(*[t.data_ptr() for t in curr[:levels]]),
+        (ctypes.c_int * levels)(*[t.shape[0] for t in prev[:levels]]),
+        (ctypes.c_int * levels)(*[t.shape[1] for t in prev[:levels]]), levels, pts.data_ptr(),
+        None if flow is None else flow.data_ptr(), mask.data_ptr(), n, s["win"], s["max_iters"], s["eps"] ** 2,
+        *(t.data_ptr() for t in out), None, None, torch.cuda.current_stream(pts.device).cuda_stream,
+    )
+
+    def run():
+        code = lib.lk_track(*args)
+        if code != 0:
+            raise RuntimeError(f"lk_track launch failed: cudaError {code}")
+
+    run.outputs = out
+    return run
+
+
+def compare(source: Path, device, paths: bool) -> Dict[str, Dict[str, list]]:
+    """Both libraries' kernels at the callers' seeded inputs, the edge
+    cases and, with ``paths``, the paths' first calls, in turns other,
+    this, this, other; prints and returns each input's medians (ms) per
+    turn."""
+    inputs = [(label, seeded_case(shape, s, n, shift, device) + (s,)) for label, shape, s, n, shift in CALLERS]
+    inputs += [(case, lk_case(case, device)) for case in ("ragged", "deep_edges")]
+    if paths:
+        from meatmodeler_tpu_torch.tools.path_calls import record
+
+        recorded = record(device, ("scan", "odometry", "two_view"))["lk"]
+        inputs += [(f"{path} call", case) for path, case in recorded.items()]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda_build.compile_source(source, Path(tmp) / "other.so", klt_cuda.NVCC_EXTRA)
+        libs = {"other": ctypes.CDLL(str(Path(tmp) / "other.so")), "this": klt_cuda.build()}
+        for label, case in inputs:
+            runs = {name: raw_launch(lib, case) for name, lib in libs.items()}
+            times = {"other": [], "this": []}
+            for which in ("other", "this", "this", "other"):
+                times[which].append(time_ms(runs[which]))
+            out[label] = times
+            us = {which: [round(t * 1e3, 3) for t in ts] for which, ts in times.items()}
+            print(f"compare lk_track {label} {tuple(case[0][0].shape)} x {len(case[2])} points {case[5]}: other "
+                  f"{us['other']} us, this {us['this']} us")
+    return out
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--compare", type=Path, default=None)
+    ap.add_argument("--paths", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("klt_bench: CUDA is not available", file=sys.stderr)
@@ -257,6 +332,8 @@ def main(argv: Optional[list] = None) -> int:
     klt_cuda.build()
     for label, shape, settings, n, shift in CALLERS:
         print(describe(label, time_lk(*seeded_case(shape, settings, n, shift, dev), settings)))
+    if args.compare is not None:
+        compare(args.compare, dev, args.paths)
     return 0
 
 

@@ -1,6 +1,6 @@
 """Time the relative-pose refinement CUDA kernel against its bound on one GPU.
 
-    python3 -m meatmodeler_tpu_torch.tools.relpose_bench [--ptxas]
+    python3 -m meatmodeler_tpu_torch.tools.relpose_bench [--ptxas] [--compare SOURCE [--paths]]
 
 At the shapes of ``refine_relative_pose``'s three callers, on seeded
 two-view scenes (``relpose_case``): the odometry's (16 essential and 8
@@ -26,24 +26,35 @@ median's selection is integer work and is not counted. Bytes: the points,
 the mask, the poses and K read once, the poses written once. The bound is
 the larger of operations at 67 TFLOP/s (float32 outside the tensor cores)
 and bytes at 3.35 TB/s. Neither is the kernel's limit: each iteration
-depends on the last, and one iteration is a chain of 8 block-wide phases
-(pose, residuals, four radix passes of the median, normal equations and
-solve, candidate cost and accept), 9 where the median of an even count
-needs its upper middle from a fifth pass; ``steps`` gives that chain's
-length for the call.
+depends on the last, and each is a chain of dependent steps of the
+candidate's block (the pose's tangents; the median's radix passes, at
+most four, and its scan; the normal equations; the 6x6 solve; the
+candidate's cost), after the launch's compaction (two passes over the
+slots) and the start's residuals; ``steps`` gives that chain's length at
+most for the call, ``barriers`` its block barriers at most (one a median
+pass and its scan, one after the sums, one after the cost; a refused step
+leaves only the last).
 
-  --ptxas  compiles ``csrc/relpose.cu`` once more with ``-Xptxas -v`` and
-           prints the kernel's registers, shared memory and spills.
+  --ptxas    compiles ``csrc/relpose.cu`` once more with ``-Xptxas -v``
+             and prints the kernel's registers, shared memory and spills.
+  --compare  builds another ``relpose.cu`` (an earlier design: the first
+             one's C interface, a (B, N) float scratch, is bound too) and
+             times both libraries' kernels at the same inputs in turns:
+             other, this, this, other; with ``--paths`` also at the first
+             calls the odometry, the marker-free bootstrap and two-view
+             make (``tools/path_calls.py``), as one launch and as their
+             16 essential candidates alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import math
 import sys
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,18 +68,34 @@ ITERS = 15  # refine_relative_pose's default, which every caller takes
 RAY_OPS = 8
 POINT_OPS = 35 + 6 * 42 + 13 + 57 + 38  # per point that enters the fit, per candidate and iteration
 POSE_OPS = 700  # per candidate and iteration
-# The callers' shapes: (label, candidates, points, masked share, outlier share).
+# The callers' shapes: (label, candidates, points, masked share, outlier
+# share). ``estimate_relative_pose`` refines its 16 essential and 8
+# homography candidates in one call (24 a launch); the first four rows are
+# the two families apart, as the first design launched them, the last two
+# one launch of the odometry and of the marker-free bootstrap, whose mask
+# holds ~421 of its 8192 track slots.
 CALLERS = [
     ("odometry", 16, 128, 0.1, 0.1),
     ("odometry_h", 8, 128, 0.1, 0.1),
     ("bootstrap", 16, 8192, 0.4, 0.2),
     ("two_view", 8, 4096, 0.96, 0.2),
+    ("odometry_24", 24, 128, 0.1, 0.1),
+    ("bootstrap_421", 24, 8192, 1.0 - 421 / 8192, 0.2),
 ]
 # Edge cases of phase 3c and the CPU tests: the start poses' rvec (the
 # so3.exp Taylor branch at 0 and 1e-7, the closed form with cancellation at
 # 1e-5), a relative rotation near pi, zero tvec starts (a failed homography
 # decomposition's nan_to_num), and a mask with nothing in it.
 EDGE_CASES = ("small_angle", "near_pi", "zero_t", "all_masked")
+# Padding the compaction must keep (``ransac_cuda.kept_slots``), at the
+# bootstrap's 8192 slots with ~421 in the mask: a NaN coordinate in one
+# masked-out slot (every step is refused), a 1e20 coordinate in each of
+# four (one per coordinate; no sum overflows).
+PADDED_CASES = ("nan_padding", "big_padding")
+# More slots than a block's shared memory holds beside the residuals (25
+# bytes a slot, ~8900 on an H100): the kernel keeps its compacted slots in
+# a global scratch instead; ~421 in the mask, as the bootstrap's.
+WIDE_CASE = "beyond_shared"
 
 
 def _scene(rng, n, rv_true, t_true, k):
@@ -97,7 +124,11 @@ def relpose_case(name: str, b: int = 16, n: int = 128, masked: float = 0.1, outl
     rng = np.random.default_rng(seed)
     k = np.array([[1000.0, 0.0, 640.0], [0.0, 1000.0, 360.0], [0.0, 0.0, 1.0]])
     rv_true, t_true = np.array([0.02, 0.15, -0.01]), np.array([-1.0, 0.05, 0.1])
-    if name != "scene":
+    if name in PADDED_CASES:
+        b, n, masked, outliers = 8, 8192, 1.0 - 421 / 8192, 0.2
+    elif name == WIDE_CASE:
+        b, n, masked, outliers = 8, 12288, 1.0 - 421 / 12288, 0.2
+    elif name != "scene":
         b, n, masked, outliers = 8, 256, 0.1, 0.1
     if name == "small_angle":
         rv_true = np.zeros(3)
@@ -126,7 +157,23 @@ def relpose_case(name: str, b: int = 16, n: int = 128, masked: float = 0.1, outl
     if name == "zero_t":
         tvec[:3] = 0.0
     f = np.float32
-    return rvec.astype(f), tvec.astype(f), p1.astype(f), p2.astype(f), mask, k.astype(f)
+    p1, p2 = p1.astype(f), p2.astype(f)
+    if name in PADDED_CASES:
+        pad_slots(name[: -len("_padding")], p1, p2, mask)
+    return rvec.astype(f), tvec.astype(f), p1, p2, mask, k.astype(f)
+
+
+def pad_slots(kind: str, p1: np.ndarray, p2: np.ndarray, mask: np.ndarray) -> None:
+    """Writes ``kind`` padding into the first masked-out slots of ``p1`` and
+    ``p2`` (float32 (N, 2), in place): "nan" a NaN x in pts1 of one slot,
+    "big" 1e20 in pts1 x, pts1 y, pts2 x and pts2 y of four slots, one
+    each."""
+    out = np.flatnonzero(~mask)
+    if kind == "nan":
+        p1[out[0], 0] = np.nan
+    else:
+        for j, (pts, c) in enumerate(((p1, 0), (p1, 1), (p2, 0), (p2, 1))):
+            pts[out[j], c] = 1e20
 
 
 def caller_case(label: str, seed: int = 0):
@@ -139,14 +186,25 @@ def to_device(case, device) -> tuple:
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in case)
 
 
+# A block's dependent steps an iteration, at most: the pose's tangents, four
+# radix passes and a scan of the median, the normal equations, the solve and
+# the candidate's cost; and a launch's: two compaction passes and the start's
+# residuals. Block barriers likewise: five for the median, one after the
+# sums, one after the cost; two for the compaction and one for the start.
+ITER_STEPS = 1 + 4 + 1 + 1 + 1 + 1
+LAUNCH_STEPS = 2 + 1
+ITER_BARRIERS = 5 + 1 + 1
+LAUNCH_BARRIERS = 2 + 1
+
+
 def relpose_work(b: int, n: int, n_valid: int, iters: int = ITERS) -> Dict[str, int]:
-    """Operations and bytes one call needs (see the module's note), and the
-    dependent steps: ``b`` candidates, ``n`` point slots, ``n_valid`` of
-    them in the mask."""
+    """Operations and bytes one call needs (see the module's note), the
+    kernel's dependent steps and block barriers at most: ``b``
+    candidates, ``n`` point slots, ``n_valid`` of them in the mask."""
     flops = RAY_OPS * n_valid + b * iters * (POINT_OPS * n_valid + POSE_OPS)
     nbytes = n * (2 * 8 + 1) + b * 2 * 12 + 36 + b * 2 * 12
-    phases = 8 + (1 if n_valid % 2 == 0 and n_valid > 0 else 0)
-    return {"flops": flops, "bytes": nbytes, "steps": iters * phases}
+    return {"flops": flops, "bytes": nbytes, "steps": LAUNCH_STEPS + iters * ITER_STEPS,
+            "barriers": LAUNCH_BARRIERS + iters * ITER_BARRIERS}
 
 
 def _spread(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -209,7 +267,8 @@ def time_relpose(rvec, tvec, pts1, pts2, mask, k, iters: int = ITERS) -> Dict[st
 def describe(label: str, r: Dict[str, object]) -> str:
     return (f"refine_relpose {label} {r['candidates']} candidates x {r['points']} points ({r['valid']} in the mask): "
             f"{r['ms']:.6f} ms (plain {r['plain_ms']:.6f} ms), {r['flops']} FLOP, {r['bytes']} B, bound "
-            f"{r['bound_ms']:.6f} ms by {r['bound_by']}, share {r['share']:.5f}; dependent steps {r['steps']}")
+            f"{r['bound_ms']:.6f} ms by {r['bound_by']}, share {r['share']:.5f}; dependent steps at most {r['steps']}, "
+            f"block barriers at most {r['barriers']}")
 
 
 def ptxas() -> str:
@@ -219,9 +278,78 @@ def ptxas() -> str:
         )
 
 
+def raw_launch(lib: ctypes.CDLL, args) -> Callable[[], None]:
+    """One launch of ``lib``'s kernel on (rvec, tvec, pts1, pts2, mask, K)
+    with no checks or counting, for timing two builds alike; the first
+    design's C interface (no ``refine_relpose_scratch_bytes``, a (B, N)
+    float scratch) is bound too."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.refine_relpose.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, p]
+    lib.refine_relpose.restype = i
+    rvec, tvec, pts1, pts2, mask, k = (t.contiguous() for t in args)
+    b, n = rvec.shape[0], pts1.shape[0]
+    if hasattr(lib, "refine_relpose_scratch_bytes"):
+        lib.refine_relpose_scratch_bytes.argtypes = [i, i]
+        lib.refine_relpose_scratch_bytes.restype = ctypes.c_size_t
+        nbytes = lib.refine_relpose_scratch_bytes(b, n)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=rvec.device) if nbytes else None
+    else:
+        scratch = torch.empty((b, n), dtype=torch.float32, device=rvec.device)
+    out_r, out_t = torch.empty_like(rvec), torch.empty_like(tvec)
+    ptrs = [t.data_ptr() for t in (rvec, tvec, pts1, pts2, mask, k)]
+    stream = torch.cuda.current_stream(rvec.device).cuda_stream
+
+    def run():
+        code = lib.refine_relpose(*ptrs, b, n, ITERS, None if scratch is None else scratch.data_ptr(),
+                                  out_r.data_ptr(), out_t.data_ptr(), stream)
+        if code != 0:
+            raise RuntimeError(f"refine_relpose launch failed: cudaError {code}")
+
+    run.outputs = (out_r, out_t)
+    return run
+
+
+def compare(source: Path, device, paths: bool) -> Dict[str, Dict[str, float]]:
+    """Both libraries' kernels at the callers' seeded inputs and, with
+    ``paths``, at the paths' first calls (as one launch and as their 16
+    essential candidates; the other design's whole call is its two
+    launches, 16 then 8, as it ran them), in turns other, this, this,
+    other; prints and returns each input's two medians (ms) per turn."""
+    inputs = [(label, to_device(caller_case(label), device)) for label, *_ in CALLERS]
+    if paths:
+        from meatmodeler_tpu_torch.tools.path_calls import record
+
+        for path, args in record(device, ("odometry", "bootstrap", "two_view"))["relpose"].items():
+            inputs.append((f"{path} essential", (args[0][:16], args[1][:16], *args[2:])))
+            inputs.append((f"{path} call", args))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda_build.compile_source(source, Path(tmp) / "other.so", ransac_cuda.NVCC_EXTRA)
+        libs = {"other": ctypes.CDLL(str(Path(tmp) / "other.so")), "this": ransac_cuda.build()}
+        for label, args in inputs:
+            runs = {name: raw_launch(lib, args) for name, lib in libs.items()}
+            if label.endswith(" call") and args[0].shape[0] > 16:
+                first = raw_launch(libs["other"], (args[0][:16], args[1][:16], *args[2:]))
+                rest = raw_launch(libs["other"], (args[0][16:], args[1][16:], *args[2:]))
+                runs["other"] = lambda first=first, rest=rest: (first(), rest())
+            times = {"other": [], "this": []}
+            for which in ("other", "this", "this", "other"):
+                times[which].append(time_ms(runs[which]))
+            out[label] = times
+            n_valid = int(args[4].sum())
+            bound = max(relpose_work(args[0].shape[0], args[2].shape[0], n_valid)["flops"] / FP32_FLOPS_PER_S,
+                        relpose_work(args[0].shape[0], args[2].shape[0], n_valid)["bytes"] / HBM_BYTES_PER_S) * 1e3
+            print(f"compare refine_relpose {label} {args[0].shape[0]} candidates x {args[2].shape[0]} points "
+                  f"({n_valid} in the mask): other {[round(t * 1e3, 3) for t in times['other']]} us, this "
+                  f"{[round(t * 1e3, 3) for t in times['this']]} us, bound {bound * 1e3:.3f} us")
+    return out
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--compare", type=Path, default=None)
+    ap.add_argument("--paths", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("relpose_bench: CUDA is not available", file=sys.stderr)
@@ -233,6 +361,8 @@ def main(argv: Optional[list] = None) -> int:
     ransac_cuda.build()
     for label, *_ in CALLERS:
         print(describe(label, time_relpose(*to_device(caller_case(label), dev))))
+    if args.compare is not None:
+        compare(args.compare, dev, args.paths)
     return 0
 
 

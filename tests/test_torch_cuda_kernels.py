@@ -195,11 +195,11 @@ def test_lk_kernel_matches_reference(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["flat", "masked", "scan_edges", "two_view_edges"])
+@pytest.mark.parametrize("case", ["flat", "masked", "scan_edges", "two_view_edges", "ragged", "deep_edges"])
 def test_lk_kernel_edge_cases(cuda, case):
     """A flat image (G singular everywhere), half the points masked, points
     on, beyond and far outside the border and NaN points (and a NaN
-    offset)."""
+    offset), 129 points, and the edge points at win 31 through 8 levels."""
     from meatmodeler_tpu_torch.tools.klt_bench import lk_case
 
     prev, curr, pts, mask, flow, s = lk_case(case, cuda)
@@ -208,6 +208,26 @@ def test_lk_kernel_edge_cases(cuda, case):
         assert not got.status.any() and torch.equal(got.points, pts)
     if case.endswith("_edges"):
         assert not got.status[12:19].any()
+
+
+@pytest.mark.gpu
+def test_lk_kernel_frozen_point_stays_bit_identical(cuda):
+    """The kernel leaves a point's loop once it freezes, and every lane
+    decides alike from the same butterfly sums: a point whose result did
+    not change from max_iters k to k + 1 keeps it, bit for bit, through
+    any number of further iterations."""
+    from meatmodeler_tpu_torch.ops import klt_cuda
+    from meatmodeler_tpu_torch.tools.klt_bench import lk_case
+
+    prev, curr, pts, mask, _, _ = lk_case("scan", cuda)
+    runs = [klt_cuda.lk_track(prev, curr, pts, 21, 1, k, 0.01, point_mask=mask)[0].cpu() for k in range(1, 17)]
+    frozen_early = 0
+    for k in range(len(runs) - 5):
+        frozen = (runs[k] == runs[k + 1]).all(dim=1)
+        frozen_early += int(frozen.sum()) if k < 6 else 0
+        for j in range(2, 6):
+            assert torch.equal(runs[k + j][frozen], runs[k][frozen])
+    assert frozen_early > 0
 
 
 @pytest.mark.gpu
@@ -288,7 +308,7 @@ def check_relpose(case, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["odometry", "odometry_h", "bootstrap", "two_view"])
+@pytest.mark.parametrize("case", ["odometry", "odometry_h", "bootstrap", "two_view", "odometry_24", "bootstrap_421"])
 def test_relpose_kernel_matches_reference(cuda, case):
     from meatmodeler_tpu_torch.tools.relpose_bench import caller_case
 
@@ -296,11 +316,42 @@ def test_relpose_kernel_matches_reference(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["small_angle", "near_pi", "zero_t", "all_masked"])
+@pytest.mark.parametrize(
+    "case", ["small_angle", "near_pi", "zero_t", "all_masked", "nan_padding", "big_padding", "beyond_shared"]
+)
 def test_relpose_kernel_edge_cases(cuda, case):
+    """The start's edge cases; 8192 slots with ~421 in the mask whose
+    padding the compaction keeps: a NaN (every step refused, the starts
+    returned) or 1e20 coordinates; and 12288 slots, whose compacted points
+    the kernel keeps in global scratch instead of shared memory."""
     from meatmodeler_tpu_torch.tools.relpose_bench import relpose_case
 
-    check_relpose(relpose_case(case), cuda)
+    case_args = relpose_case(case)
+    check_relpose(case_args, cuda)
+    if case == "nan_padding":
+        from meatmodeler_tpu_torch.geometry import ransac
+
+        rv, _ = ransac.refine_relative_pose(*(torch.from_numpy(x).to(cuda) for x in case_args))
+        assert torch.equal(rv.cpu(), torch.from_numpy(case_args[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["bootstrap_421", "big_padding", "two_view", "beyond_shared"])
+def test_relpose_kernel_compaction_drops_only_zero_slots(cuda, case):
+    """The kernel on every slot gives bit for bit what it gives on the
+    slots ``ransac_cuda.kept_slots`` keeps: the slots it drops are the ones
+    that add exactly 0."""
+    from meatmodeler_tpu_torch.geometry import ransac_cuda
+    from meatmodeler_tpu_torch.tools.relpose_bench import caller_case, relpose_case, to_device
+
+    rv, tv, p1, p2, m, k = to_device(caller_case(case) if case in ("bootstrap_421", "two_view") else relpose_case(case),
+                                     cuda)
+    kept = ransac_cuda.kept_slots(p1, p2, m, k)
+    assert int(kept.sum()) < len(kept)
+    every = ransac_cuda.refine_relpose(rv, tv, p1, p2, m, k)
+    alone = ransac_cuda.refine_relpose(rv, tv, p1[kept], p2[kept], m[kept], k)
+    for x, y in zip(every, alone):
+        assert torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(), y.nan_to_num())
 
 
 @pytest.mark.gpu
@@ -360,8 +411,13 @@ def test_estimate_relative_pose_on_cuda_matches_cpu(cuda, cpu_draws):
     k, p1, p2 = _two_view_scene()
     mask = torch.ones(p1.shape[0], dtype=torch.bool)
     mask[-10:] = False
+    from meatmodeler_tpu_torch.geometry import ransac_cuda
+
     rv_c, tv_c, res_c = ransac.estimate_relative_pose(p1, p2, mask, k)
+    before = ransac_cuda.LAUNCHES["refine_relpose"]
     rv_g, tv_g, res_g = ransac.estimate_relative_pose(p1.to(cuda), p2.to(cuda), mask.to(cuda), k.to(cuda))
+    # Its 16 essential and 8 homography candidates in one launch.
+    assert ransac_cuda.LAUNCHES["refine_relpose"] == before + 1
     torch.testing.assert_close(rv_g.cpu(), rv_c, atol=1e-3, rtol=0)
     torch.testing.assert_close(tv_g.cpu(), tv_c, atol=1e-3, rtol=0)
     assert int((res_g.inliers.cpu() != res_c.inliers).sum()) <= 3
@@ -485,8 +541,8 @@ def test_odometry_steps_on_cuda_match_cpu(cuda, cpu_draws):
     res_g = chain_poses(frames, scene.intrinsics, device="cuda")
     assert clahe_cuda.LAUNCHES["clahe_lut"] == before["clahe_lut"] + 4
     assert klt_cuda.LAUNCHES["lk_track"] == lk_before + 3  # one launch per step
-    # Two per step: the essential candidates and the homography's.
-    assert ransac_cuda.LAUNCHES["refine_relpose"] == refine_before + 6
+    # One per step: the essential candidates and the homography's together.
+    assert ransac_cuda.LAUNCHES["refine_relpose"] == refine_before + 3
     assert np.abs(res_g.num_tracked - res_c.num_tracked).max() <= 2
     assert (res_g.num_tracked[1:] > 50).all()
 

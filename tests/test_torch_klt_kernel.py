@@ -157,7 +157,9 @@ def _read_pixels(shape, centre, pad, size):
 def test_lk_work_counts_this_calls_iterations():
     """The bound counts the iterations each point ran (after early exit),
     the final error only where the status holds, and as bytes the union of
-    the pixels the windows read at each level of each frame."""
+    the pixels the windows read at each level of each frame; the steps are
+    the slowest point's chain at each level, coarsest first (staging and
+    G, then one an iteration)."""
     from meatmodeler_tpu_torch.tools.klt_bench import lk_work
 
     shapes = [(180, 320), (90, 160), (45, 80), (23, 40)]
@@ -183,6 +185,9 @@ def test_lk_work_counts_this_calls_iterations():
             curr |= _read_pixels(shape, tracked[0].tolist(), win + 1, win)
         pixels += len(prev) + len(curr)
     assert work["bytes"] == 4 * pixels + 3 * io
+    assert work["steps"] == [12, 12, 12, 12]
+    assert lk_work(shapes, points[:2], win, iterations[:2], path[:2], tracked[:2], status[:2], False)["steps"] == [
+        6, 5, 4, 3]
     # One interior point, one iteration where it started, at full
     # resolution: its template grid and one window; its error windows lie
     # inside those, so tracking it adds no bytes.
@@ -221,6 +226,20 @@ def test_lk_agreement_holds_live_points_to_eps():
     assert not lk_agrees(lk_agreement(got._replace(error=ref.error + 1e-3), ref, held), 0.01)
     moved = got._replace(points=got.points + torch.tensor([[0.02, 0.0], [0.0, 0.0], [0.0, 0.0], [0.0, 0.0]]))
     assert not lk_agrees(lk_agreement(moved, ref, held), 0.01)
+
+
+def test_lk_cases_cover_the_kernels_edges():
+    """The card's new edge cases: 129 points (one past the scan's) and the
+    edge points at win 31 through 8 levels, the largest window and depth
+    the kernel takes."""
+    from meatmodeler_tpu_torch.ops import klt_cuda
+    from meatmodeler_tpu_torch.tools.klt_bench import lk_case
+
+    prev, _, pts, mask, flow, s = lk_case("ragged", torch.device("cpu"))
+    assert len(pts) == 129 and flow is None
+    prev, _, pts, mask, flow, s = lk_case("deep_edges", torch.device("cpu"))
+    assert (s["win"], s["levels"]) == (klt_cuda.MAX_WIN, klt_cuda.MAX_LEVELS) and len(prev) == 8
+    assert len(pts) == 35 and bool(mask[:19].all())
 
 
 def test_klt_bench_refuses_without_cuda():

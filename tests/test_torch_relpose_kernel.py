@@ -136,13 +136,84 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_relpose_work_counts_the_masked_points():
     """Operations for the points in the mask, every candidate and
-    iteration; bytes for every slot; steps by the median's parity."""
+    iteration; bytes for every slot; the block's dependent steps at most
+    (two compaction passes and the start's residuals, then per iteration
+    the pose's tangents, four radix passes and a scan, the normal
+    equations, the solve and the candidate's cost) and its block barriers
+    at most (three, then per iteration five for the median, one after the
+    sums and one after the cost), whatever the median's parity."""
     w = relpose_work(16, 128, 115, 15)
     assert w["flops"] == 8 * 115 + 16 * 15 * (395 * 115 + 700)
     assert w["bytes"] == 128 * 17 + 16 * 24 + 36 + 16 * 24
-    assert w["steps"] == 15 * 8
-    assert relpose_work(16, 128, 114, 15)["steps"] == 15 * 9
+    assert w["steps"] == 3 + 15 * 9
+    assert w["barriers"] == 3 + 15 * 7
+    assert relpose_work(16, 128, 114, 15)["steps"] == 3 + 15 * 9
+    assert relpose_work(24, 8192, 421, 1)["steps"] == 3 + 9
     assert relpose_work(8, 64, 0, 15)["flops"] == 8 * 15 * 700
+
+
+# The compaction (``csrc/relpose.cu``) drops the masked-out slots that add
+# exactly 0 to every sum. These pin, on the plain version and the JAX
+# package's, what that relies on, on a masked, outlier-heavy 512-slot scene.
+def _masked_scene(pad=None):
+    case = relpose_case("scene", 8, 512, masked=0.7, outliers=0.2, seed=4)
+    if pad is not None:
+        relpose_bench.pad_slots(pad, case[2], case[3], case[4])
+    return case
+
+
+def test_refine_on_the_masks_slots_alone_matches_all_slots():
+    """With finite padding, refining on the slots in the mask alone gives
+    the poses refining on every slot gives: in float64 within 1e-8 on
+    every candidate (the padding adds exact zeros, but torch.matmul blocks
+    the sums differently for another N, so not bit for bit); in float32
+    within 1e-4 on the candidates rounding does not decide."""
+    rv, tv, p1, p2, m, k = _masked_scene()
+    alone = (rv, tv, p1[m], p2[m], m[m], k)
+    every64, alone64 = _plain(_f64((rv, tv, p1, p2, m, k))), _plain(_f64(alone))
+    for x, y in zip(every64, alone64):
+        torch.testing.assert_close(x, y, atol=1e-8, rtol=0)
+    every = _plain((rv, tv, p1, p2, m, k))
+    a = relpose_agreement(_plain(alone), every, determined(every, every64))
+    assert relpose_agrees(a, 1e-4), a
+    kept = ransac_cuda.kept_slots(*(torch.from_numpy(x) for x in (p1, p2, m, k)))
+    assert torch.equal(kept, torch.from_numpy(m))
+
+
+def test_nan_in_a_masked_out_slot_refuses_every_step():
+    """A NaN coordinate in one masked-out slot makes its residual, weight
+    and so every sum NaN: the plain version and the JAX package's refuse
+    every step and return the starts (t made unit). The compaction keeps
+    such a slot."""
+    case = _masked_scene("nan")
+    rv0, tv0, p1, p2, m, k = case
+    unit = tv0 / np.linalg.norm(tv0, axis=1, keepdims=True)
+    for rv, tv in (_plain(case), _jax(case)):
+        np.testing.assert_array_equal(rv.numpy(), rv0)
+        np.testing.assert_allclose(tv.numpy(), unit, rtol=1e-6)
+    kept = ransac_cuda.kept_slots(*(torch.from_numpy(x) for x in (p1, p2, m, k)))
+    assert int(kept.sum()) == int(m.sum()) + 1 and bool(kept[np.flatnonzero(~m)[0]])
+
+
+def test_big_coordinate_in_a_masked_out_slot_matches_jax():
+    """1e20 in one coordinate of each of four masked-out slots: the plain
+    version gives what the JAX package gives (float64 within 1e-6, float32
+    within 1e-4 where rounding does not decide), and what it gives with the
+    padding at 0: bit for bit in both types, so such a slot does not poison
+    the sums (its residual stays ~focal, its weight 0). The compaction
+    keeps the four all the same: their rays lie beyond its bound."""
+    case = _masked_scene("big")
+    got64, ref64 = _plain(_f64(case)), _jax(_f64(case))
+    for g, r in zip(got64, ref64):
+        torch.testing.assert_close(g, r, atol=1e-6, rtol=0, equal_nan=True)
+    got = _plain(case)
+    a = relpose_agreement(_jax(case), got, determined(got, got64))
+    assert relpose_agrees(a, 1e-4), a
+    zero = _masked_scene()
+    for x, y in zip(got + got64, _plain(zero) + _plain(_f64(zero))):
+        assert torch.equal(x, y)
+    kept = ransac_cuda.kept_slots(*(torch.from_numpy(x) for x in case[2:]))
+    assert int(kept.sum()) == int(case[4].sum()) + 4
 
 
 def test_relpose_agreement_holds_determined_candidates():
