@@ -40,12 +40,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      on seeded boards and BA problems (``tools/geometry_bench``), float32
      and float64: the BA Jacobians elementwise within 1e-5 (float64 1e-12)
      of max(1, |J|) of each observation's block at the known path's
-     pose-only and global problems, 8 lanes, and rvec 0, 1e-7, 1e-3 and
+     pose-only and global problems, 8 lanes, 8 lanes of 128 cameras (past
+     the kernel's shared coefficient table), and rvec 0, 1e-7, 1e-3 and
      near pi; PnP poses within 1e-4 on the starts float32 rounding does
      not decide (all in float64); the calibration LM's K and rms within
      1e-4 relative and poses within 1e-4 (float64, and float32 where it does
-     not decide); NaN patterns equal everywhere; then render the headline
-     clip (300 frames, 1080p) on the card;
+     not decide) at the known path's layout, with 5 distortion terms and a
+     masked view, and at 128 and 384 such views (the last past the
+     kernel's shared-memory budget); NaN patterns equal everywhere; then
+     render the headline clip (300 frames, 1080p) on the card;
   4. run ``process`` on the clip with ``headline_config()`` and the
      renderer's board corners twice, with the launch counts reset just
      before; check the
@@ -654,10 +657,10 @@ def compare_calib(label, args, err):
 def compare_geometry_seeded(dev, err):
     """Phase 3d: the three geometry kernels on seeded boards and BA problems."""
     for dtype in (torch.float32, torch.float64):
-        for name in ("ba_pose", "ba_global", "ba_lanes", *gb.BA_EDGES):
+        for name in (*gb.BA_CASES, gb.BA_WIDE):
             compare_obs_jacobians(f"seeded {name}", tuple(gb.ba_case(name, dev, dtype)), err)
         compare_pnp("seeded known-path shape", gb.pnp_args(gb.pnp_case(), dev, dtype), err)
-    for name in ("calibrate", "calibrate_dist5"):
+    for name in ("calibrate", "calibrate_dist5", gb.CALIB_WIDE, gb.CALIB_WIDER):
         compare_calib(f"seeded {name}", gb.lm_args(gb.calib_case(name), dev), err)
 
 

@@ -3,8 +3,10 @@
 One launch runs one whole ``calibration.run_lm``: every iteration, both
 damping trials and the accept/stop rule, with the Jacobian kept as its
 arrowhead blocks and each trial solved through the intrinsics' Schur
-complement (sums and solves in double); nothing is read back until it
-ends. The library is built and
+complement (sums and solves in double), a warp per view on a cluster of up
+to 8 blocks; nothing is read back until it ends. The views' terms stay in
+the blocks' shared memory; only a call with more views than that holds
+gets a global workspace (``calib_lm_workspace``). The library is built and
 loaded by ``ops/cuda_build.py`` (nvcc for ``sm_90a`` at first use,
 ctypes), with ``-fmad=false`` so that each product and sum rounds as the
 plain version's do. Nothing is built at import; a failed build or launch

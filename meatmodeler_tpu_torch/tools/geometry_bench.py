@@ -1,6 +1,6 @@
 """Time the board geometry's three CUDA kernels against their bounds on one GPU.
 
-    python3 -m meatmodeler_tpu_torch.tools.geometry_bench [--ptxas]
+    python3 -m meatmodeler_tpu_torch.tools.geometry_bench [--ptxas] [--launches] [--compare OTHER_DIR [--paths]]
 
 The kernels: ``obs_jacobians`` (``csrc/ba_jac.cu``, one launch per BA LM
 iteration), ``pnp_refine`` (``csrc/pnp.cu``, one launch per
@@ -54,22 +54,42 @@ every caller's is; each sum over a point's two residual rows 2 products and
   theta and the cost written once.
 
 The bound is the larger of operations at 67 TFLOP/s (float32 outside the
-tensor cores) and bytes at 3.35 TB/s. ``obs_jacobians`` is bound by bytes
-at the global BA's size; the other two are chains of dependent steps
-(``steps``: iterations x block phases), which set their time.
+tensor cores) and bytes at 3.35 TB/s. None of the three reaches it: each
+is a chain of dependent steps (``steps``: for the LM, 4 stretches an
+iteration and the start, ``barriers`` the block barriers among them), which
+sets its time.
 
-  --ptxas  compiles the three sources once more with ``-Xptxas -v`` and
-           prints each kernel's registers, shared memory and spills.
+  --ptxas    compiles the three sources once more with ``-Xptxas -v`` and
+             prints each kernel's registers, shared memory and spills.
+  --compare  builds another design's ``ba_jac.cu`` and ``calib.cu`` from
+             OTHER_DIR (an earlier tree's ``csrc``, its own
+             ``pinhole_jet.cuh`` beside them) and times both designs at the
+             same inputs in turns (this, other, other, this): the BA cases
+             and the calibration cases of ``COMPARE_BA`` / ``COMPARE_CALIB``,
+             and with ``--paths`` also at the known path's first calls (its
+             two LM runs, its first pose-only and global BA Jacobians,
+             recorded from one ``process`` of the headline clip with its
+             corners). Both designs' outputs must agree: the Jacobians bit
+             for bit, or within ``JAC_TOL``; the LM runs in iterations and
+             by ``calib_agrees``. Exits 1 where they do not.
+  --launches counts ``obs_jacobians`` launches by caller over one
+             marker-free run (``markerless_clip``, ``markerless_config``:
+             the pose chain's ``pose_only_refine`` and in-chain
+             ``adjust_points``, then the global BA) and one run of the
+             batch row (``batch_clips``, ``batch_config``).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import inspect
 import math
 import sys
 import tempfile
+import threading
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +134,16 @@ K_HEADLINE = np.array([[750.0, 0.0, 480.0], [0.0, 750.0, 270.0], [0.0, 0.0, 1.0]
 PATTERN = (4, 3)
 FRAMES = 22
 BA_EDGES = ("rvec0", "rvec1e-7", "rvec1e-3", "near_pi")
+BA_CASES = ("ba_pose", "ba_global", "ba_lanes", *BA_EDGES)
+# Past the Jacobian kernel's shared coefficient table: 8 lanes of
+# max_keyframes (128) cameras, few observations a lane.
+BA_WIDE = "ba_wide"
+# num_dist 0-5 with two focals, a free centre and a masked view.
+CALIB_DIST_CASES = tuple(f"calibrate_dist{k}" for k in range(6))
+# max_keyframes views, and three times that: past the LM kernel's shared-memory
+# budget (its views' terms then go to the global workspace).
+CALIB_WIDE = "calibrate_128"
+CALIB_WIDER = "calibrate_384"
 
 
 def _rodrigues(rv: np.ndarray) -> np.ndarray:
@@ -155,25 +185,33 @@ def _project(obj: np.ndarray, poses: np.ndarray, k: np.ndarray) -> np.ndarray:
 def calib_case(name: str = "calibrate", seed: int = 0) -> Dict[str, object]:
     """Seeded inputs of one ``calibrate`` call (numpy, float32): ``img``
     (F, N, 2), ``obj`` (N, 3), ``image_size``, the layout keywords and
-    ``view_mask`` (or None). 0.3 px noise; ``calibrate_dist5`` adds
-    distortion to the pixels and masks the last view."""
+    ``view_mask`` (or None). 0.3 px noise. ``calibrate`` is the known
+    path's layout at its 22 views; ``calibrate_dist<k>`` (k = 0-5) adds
+    distortion to the pixels, fits k coefficients with two focals and a
+    free centre, and masks the last view; ``calibrate_128`` and
+    ``calibrate_384`` are ``calibrate_dist5`` at 128 and 384 views."""
     from meatmodeler_tpu_torch.geometry import distortion
 
+    wide = {CALIB_WIDE: 128, CALIB_WIDER: 384}
+    frames = wide.get(name, FRAMES)
     obj = calibration.chessboard_object_points(PATTERN, torch.float64).numpy()
-    poses = board_poses(FRAMES, seed)
+    poses = board_poses(frames, seed)
     rng = np.random.default_rng(seed + 100)
     k = K_HEADLINE.copy()
     kw = dict(num_dist=0, fix_principal_point=True, single_focal=True)
     img = _project(obj, poses, k)
     mask = None
-    if name == "calibrate_dist5":
+    if name in CALIB_DIST_CASES or name in wide:
         k[0, 0], k[1, 1], k[0, 2], k[1, 2] = 760.0, 745.0, 476.0, 272.0
         img = _project(obj, poses, k)
         dist = torch.tensor([-0.08, 0.05, 1e-3, -5e-4, 0.0], dtype=torch.float64)
         img = distortion.distort_pixels(torch.from_numpy(img), torch.from_numpy(k), dist).numpy()
-        kw = dict(num_dist=5, fix_principal_point=False, single_focal=False)
-        mask = np.ones(FRAMES, bool)
+        kw = dict(num_dist=int(name[-1]) if name in CALIB_DIST_CASES else 5, fix_principal_point=False,
+                  single_focal=False)
+        mask = np.ones(frames, bool)
         mask[-1] = False
+    elif name != "calibrate":
+        raise ValueError(f"unknown calibration case {name!r}")
     img = img + rng.normal(scale=0.3, size=img.shape)
     f = np.float32
     return dict(img=img.astype(f), obj=obj.astype(f), image_size=IMAGE_SIZE, view_mask=mask, **kw)
@@ -228,9 +266,11 @@ def ba_case(name: str, device="cpu", dtype=torch.float32, seed: int = 0) -> BACa
     ``ba_global`` (a global BA at its size: 2000 points, 12000
     observations, weighted, 3% masked), ``ba_lanes`` (``solve_ba_batch``'s:
     8 lanes of 11 cameras, 400 points, 3000 observation slots, the tails
-    masked) or one of ``BA_EDGES``: the pose-only problem with every
-    camera's rvec set to 0, to 1e-7 or 1e-3 (the Taylor branch, its edge,
-    the closed form under cancellation) or near pi."""
+    masked), ``ba_wide`` (8 lanes of 128 cameras, 60 points and 40
+    observation slots, the tails masked: past the kernel's shared
+    coefficient table) or one of ``BA_EDGES``: the pose-only problem with
+    every camera's rvec set to 0, to 1e-7 or 1e-3 (the Taylor branch, its
+    edge, the closed form under cancellation) or near pi."""
     rng = np.random.default_rng(seed)
     weight = None
     if name in ("ba_pose", *BA_EDGES):
@@ -261,8 +301,8 @@ def ba_case(name: str, device="cpu", dtype=torch.float32, seed: int = 0) -> BACa
         weight = 1.2 ** -rng.integers(0, 4, n).astype(np.float64)
         k = K_HEADLINE
         lanes = None
-    elif name == "ba_lanes":
-        lanes, f, p, n = 8, 11, 400, 3000
+    elif name in ("ba_lanes", BA_WIDE):
+        lanes, f, p, n = (8, 11, 400, 3000) if name == "ba_lanes" else (8, 128, 60, 40)
         cams = np.stack([board_poses(f, seed + v, xz=True) for v in range(lanes)])
         pts = rng.normal(size=(lanes, p, 3)) * [3.0, 2.0, 3.0] + [3.0, 2.0, 2.0]
         fidx, pidx = rng.integers(0, f, (lanes, n)), rng.integers(0, p, (lanes, n))
@@ -434,7 +474,8 @@ def calib_work(f: int, n: int, n_intr: int, num_dist: int, iterations: int, item
     per_iter = rows + 2 * trial + LM_RULE_OPS
     n_params = n_intr + 6 * f
     nbytes = (2 * n_params + f * n * 2 + n * 3 + f + 1) * itemsize
-    return {"flops": cost + iterations * per_iter, "bytes": nbytes, "steps": 9 * iterations + 1}
+    return {"flops": cost + iterations * per_iter, "bytes": nbytes, "steps": 4 * iterations + 1,
+            "barriers": 3 * iterations + 1}
 
 
 def _timed(kernel, plain, work) -> Dict[str, object]:
@@ -478,9 +519,10 @@ def time_calib(*args) -> Dict[str, object]:
 def describe(name: str, label: str, r: Dict[str, object]) -> str:
     shape = {k: r[k] for k in ("lanes", "cameras", "points", "observations", "twins", "frames", "views", "n_intr",
                                "iterations") if k in r}
+    barriers = f", block barriers {r['barriers']}" if "barriers" in r else ""
     return (f"{name} {label} {shape}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f} ms), {r['flops']} FLOP, "
             f"{r['bytes']} B, bound {r['bound_ms']:.6f} ms by {r['bound_by']}, share {r['share']:.5f}; dependent "
-            f"steps {r['steps']}")
+            f"steps {r['steps']}{barriers}")
 
 
 def ptxas() -> str:
@@ -491,10 +533,221 @@ def ptxas() -> str:
     return "\n".join(out)
 
 
+def raw_ba(lib: ctypes.CDLL, args) -> Callable[[], None]:
+    """One launch of ``lib``'s ``obs_jacobians`` on ``obs_jacobians``'
+    arguments with no checks or counting, for timing two builds alike; the
+    outputs are ``run.outputs``."""
+    cam, pts, k, fidx, pidx, mask, weight = args
+    lead = tuple(cam.shape[:1]) if cam.ndim == 3 else ()
+    n = fidx.shape[-1]
+    jc = torch.empty(lead + (n, 2, 6), dtype=cam.dtype, device=cam.device)
+    jp = torch.empty(lead + (n, 2, 3), dtype=cam.dtype, device=cam.device)
+    tensors = [t.contiguous() for t in (cam, pts, k, fidx, pidx, mask)] + [weight]
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    fn = getattr(lib, bundle_adjust_cuda._ENTRY[cam.dtype])
+    stream = torch.cuda.current_stream(cam.device).cuda_stream
+
+    def run():
+        code = fn(*ptrs, lead[0] if lead else 1, cam.shape[-2], pts.shape[-2], n, jc.data_ptr(), jp.data_ptr(), stream)
+        if code != 0:
+            raise RuntimeError(f"obs_jacobians launch failed: cudaError {code}")
+
+    run.outputs, run.tensors = (jc, jp), tensors
+    return run
+
+
+def raw_calib(lib: ctypes.CDLL, args) -> Callable[[], None]:
+    """One launch of ``lib``'s ``calib_lm`` on ``calibration.run_lm``'s
+    arguments (its own workspace), as ``raw_ba``; outputs (theta, cost,
+    iterations)."""
+    theta0, img, obj, image_size, num_dist, max_iters, fix_pp, single_focal, mask = args
+    f, n = img.shape[:2]
+    n_focal, n_pp = (1 if single_focal else 2), (0 if fix_pp else 2)
+    work = torch.empty(int(lib.calib_lm_workspace(f, n, n_focal + n_pp + num_dist, img.element_size())),
+                       dtype=torch.uint8, device=img.device)
+    theta, cost = torch.empty_like(theta0), torch.empty((), dtype=img.dtype, device=img.device)
+    iters = torch.empty((), dtype=torch.int32, device=img.device)
+    tensors = [t.contiguous() for t in (theta0, img, obj)] + [mask]
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    fn = getattr(lib, calibration_cuda._ENTRY[img.dtype])
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+
+    def run():
+        code = fn(*ptrs, f, n, n_focal, n_pp, num_dist, 0.5 * float(image_size[0]), 0.5 * float(image_size[1]),
+                  max_iters, work.data_ptr() if work.numel() else None, theta.data_ptr(), cost.data_ptr(),
+                  iters.data_ptr(), stream)
+        if code != 0:
+            raise RuntimeError(f"calib_lm launch failed: cudaError {code}")
+
+    run.outputs, run.tensors = (theta, cost, iters), tensors
+    return run
+
+
+def known_path_calls(device) -> Dict[str, tuple]:
+    """The known path's first calls of the two kernels: {"calib_lm call 1",
+    "calib_lm call 2": ``run_lm`` arguments, "pose-only BA", "global BA":
+    ``obs_jacobians`` arguments}, from one ``process`` of the headline clip
+    with its corners."""
+    from meatmodeler_tpu_torch.pipeline import process
+    from meatmodeler_tpu_torch.tools.profile_headline import headline_clip, headline_config, recording
+
+    _, frames, corners = headline_clip(device)
+    first, inside = {}, threading.local()
+    real_ba = bundle_adjust_cuda.obs_jacobians
+
+    def within(fn, label):
+        def run(*a, **k):
+            inside.label = label
+            try:
+                return fn(*a, **k)
+            finally:
+                inside.label = None
+
+        return run
+
+    def ba(*a, **k):
+        label = getattr(inside, "label", None)
+        if label is not None and label not in first:
+            bound = inspect.signature(real_ba).bind(*a, **k)
+            bound.apply_defaults()
+            first[label] = tuple(bound.arguments.values())
+        return real_ba(*a, **k)
+
+    real = (bundle_adjust.adjust_pose, bundle_adjust.adjust_points)
+    bundle_adjust.adjust_pose, bundle_adjust.adjust_points = within(real[0], "pose-only BA"), within(real[1], "global BA")
+    bundle_adjust_cuda.obs_jacobians = ba
+    try:
+        with recording(calibration_cuda, "calib_lm") as calib_calls:
+            process(frames, config=headline_config(), known_corners=corners, device=device.type)
+    finally:
+        bundle_adjust.adjust_pose, bundle_adjust.adjust_points = real
+        bundle_adjust_cuda.obs_jacobians = real_ba
+    out = {}
+    for i, call in enumerate(calib_calls[:2]):
+        bound = inspect.signature(calibration.run_lm).bind(*call[0], **call[1])
+        bound.apply_defaults()
+        out[f"calib_lm call {i + 1}"] = tuple(bound.arguments.values())
+    for label in ("pose-only BA", "global BA"):
+        out[label] = first[label]
+    return out
+
+
+# The BA callers ``launches_by_caller`` tells apart, innermost first.
+BA_CALLERS = ("pose_only_refine", "adjust_points", "adjust_pose", "solve_ba_batch")
+
+
+def launches_by_caller(run: Callable[[], object]) -> Dict[str, int]:
+    """``obs_jacobians`` launches of one ``run()``, by the innermost BA
+    caller (``BA_CALLERS``), those inside the marker-free pose chain
+    (``pipeline._chain_keyframe_poses``) as "pose chain: <caller>"; from
+    any host thread."""
+    from meatmodeler_tpu_torch import pipeline
+
+    counts: Dict[str, int] = {}
+    local, lock = threading.local(), threading.Lock()
+
+    def within(fn, label):
+        def call(*a, **k):
+            stack = local.__dict__.setdefault("stack", [])
+            stack.append(label)
+            try:
+                return fn(*a, **k)
+            finally:
+                stack.pop()
+
+        return call
+
+    real_ba = bundle_adjust_cuda.obs_jacobians
+
+    def ba(*a, **k):
+        stack = getattr(local, "stack", [])
+        callers = [x for x in stack if x in BA_CALLERS]
+        label = callers[-1] if callers else "other"
+        if "pose chain" in stack:
+            label = f"pose chain: {label}"
+        with lock:
+            counts[label] = counts.get(label, 0) + 1
+        return real_ba(*a, **k)
+
+    patches = [(bundle_adjust, name) for name in BA_CALLERS] + [(pipeline, "_chain_keyframe_poses")]
+    saved = [getattr(m, n) for m, n in patches]
+    for (m, n), fn in zip(patches, saved):
+        setattr(m, n, within(fn, "pose chain" if n == "_chain_keyframe_poses" else n))
+    bundle_adjust_cuda.obs_jacobians = ba
+    try:
+        run()
+    finally:
+        bundle_adjust_cuda.obs_jacobians = real_ba
+        for (m, n), fn in zip(patches, saved):
+            setattr(m, n, fn)
+    return counts
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+COMPARE_BA = ("ba_pose", "ba_global", "ba_lanes", BA_WIDE)
+COMPARE_CALIB = ("calibrate", "calibrate_dist5", CALIB_WIDE, CALIB_WIDER)
+
+
+def compare(other: Path, device, paths: bool) -> bool:
+    """Both designs of the two kernels at the same inputs, in turns this,
+    other, other, this (see ``--compare``); prints each input's medians (us)
+    and the designs' agreement, returns whether every input agreed."""
+    inputs = [(f"obs_jacobians {name} {str(dt)[6:]}", "ba", tuple(ba_case(name, device, dt)))
+              for dt in (torch.float32, torch.float64) for name in (*COMPARE_BA, *BA_EDGES)]
+    inputs += [(f"calib_lm {name} {str(dt)[6:]}", "calib", lm_args(calib_case(name), device, dt))
+               for dt in (torch.float32, torch.float64) for name in COMPARE_CALIB]
+    if paths:
+        for label, args in known_path_calls(device).items():
+            inputs.append((f"known path {label}", "calib" if label.startswith("calib") else "ba", args))
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {}
+        for kind, mod, name in (("ba", bundle_adjust_cuda, "ba_jac"), ("calib", calibration_cuda, "calib")):
+            path = Path(tmp) / f"{name}.so"
+            cuda_build.compile_source(other / f"{name}.cu", path, mod.NVCC_EXTRA)
+            lib = ctypes.CDLL(str(path))
+            mod._bind(lib)
+            libs[kind] = {"this": mod.build(), "other": lib}
+        for label, kind, args in inputs:
+            raw = raw_ba if kind == "ba" else raw_calib
+            runs = {which: raw(lib, args) for which, lib in libs[kind].items()}
+            times = {"this": [], "other": []}
+            for which in ("this", "other", "other", "this"):
+                times[which].append(time_ms(runs[which]) * 1e3)
+            got, ref = runs["this"].outputs, runs["other"].outputs
+            if kind == "ba":
+                bit = all(_same(a, b) for a, b in zip(got, ref))
+                a = jacobian_agreement(got, ref)
+                agrees = bit or jacobians_agree(a, JAC_TOL if args[0].dtype == torch.float32 else 1e-12)
+                verdict = "bit for bit" if bit else f"not bit for bit: {a}"
+            else:
+                theta0, img, mask = args[0], args[1], args[8]
+                n_intr = theta0.shape[0] - 6 * img.shape[0]
+                n_fp = (1 if args[7] else 2) + (0 if args[6] else 2)
+                points = int(img.shape[0] if mask is None else mask.sum()) * img.shape[1]
+                a = calib_agreement(got, ref, n_intr, n_fp, points, True)
+                same_iters = int(got[2]) == int(ref[2])
+                agrees = same_iters and calib_agrees(a)
+                verdict = (f"iterations {int(got[2])} / {int(ref[2])}, theta bit for bit {_same(got[0], ref[0])}, "
+                           f"cost {float(got[1])!r} / {float(ref[1])!r}, {a}")
+            ok = ok and agrees
+            print(f"compare {label}: this {[round(t, 3) for t in times['this']]} us, other "
+                  f"{[round(t, 3) for t in times['other']]} us; {verdict}{'' if agrees else ' DISAGREE'}", flush=True)
+    return ok
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--compare", type=Path, default=None, metavar="OTHER_DIR")
+    ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--launches", action="store_true")
     args = ap.parse_args(argv)
+    if args.paths and args.compare is None:
+        ap.error("--paths needs --compare")
     if not torch.cuda.is_available():
         print("geometry_bench: CUDA is not available", file=sys.stderr)
         return 2
@@ -507,6 +760,22 @@ def main(argv: Optional[list] = None) -> int:
     print(describe("pnp_refine", "pnp", time_pnp(*pnp_args(pnp_case(), dev))))
     for name in ("calibrate", "calibrate_dist5"):
         print(describe("calib_lm", name, time_calib(*lm_args(calib_case(name), dev))))
+    if args.launches:
+        from meatmodeler_tpu_torch.parallel.batch import process_batch
+        from meatmodeler_tpu_torch.pipeline import process
+        from meatmodeler_tpu_torch.tools.profile_headline import (
+            batch_clips, batch_config, markerless_clip, markerless_config,
+        )
+
+        _, frames, _ = markerless_clip(dev)
+        counts = launches_by_caller(lambda: process(frames, config=markerless_config(), device="cuda"))
+        print(f"obs_jacobians launches, one marker-free run: {counts}, in all {sum(counts.values())}")
+        del frames
+        _, clips = batch_clips(dev)
+        counts = launches_by_caller(lambda: process_batch(clips, config=batch_config(), device="cuda"))
+        print(f"obs_jacobians launches, one batch-row run: {counts}, in all {sum(counts.values())}")
+    if args.compare is not None and not compare(args.compare, dev, args.paths):
+        return 1
     return 0
 
 

@@ -730,11 +730,14 @@ def test_band_shards_over_gpus(two_gpus):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["ba_pose", "ba_global", "ba_lanes", "rvec0", "rvec1e-7", "rvec1e-3", "near_pi"])
+@pytest.mark.parametrize(
+    "case", ["ba_pose", "ba_global", "ba_lanes", "rvec0", "rvec1e-7", "rvec1e-3", "near_pi", "ba_wide"]
+)
 def test_obs_jacobians_kernel_matches_reference(cuda, case, dtype):
     """The BA Jacobian kernel against its plain version at the callers'
     shapes (the known path's pose-only and global problems, a batch of 8
-    lanes) and the rotation's edges (rvec 0, 1e-7, 1e-3, near pi):
+    lanes, 8 lanes of 128 cameras past the kernel's shared coefficient
+    table) and the rotation's edges (rvec 0, 1e-7, 1e-3, near pi):
     elementwise within 1e-5 (float32; 1e-12 in float64) of max(1, |J|) of
     the observation's block (``geometry_bench.jacobian_agreement``), NaN
     patterns equal; one launch a call."""
@@ -748,6 +751,31 @@ def test_obs_jacobians_kernel_matches_reference(cuda, case, dtype):
     assert bundle_adjust_cuda.LAUNCHES["obs_jacobians"] == before + 1
     a = jacobian_agreement(got, ba_plain(*args))
     assert jacobians_agree(a, 1e-5 if dtype == torch.float32 else 1e-12), a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ba_pose", "ba_lanes", "ba_wide"])
+def test_obs_jacobians_kernel_gives_nan_rows_for_bad_indices(cuda, case):
+    """An observation whose camera or point index lies outside its lane's
+    gets NaN rows (the plain version raises there), with the shared
+    coefficient table (``ba_pose``, ``ba_lanes``) and without it
+    (``ba_wide``); every other observation's rows are those of the same
+    call with valid indices, bit for bit."""
+    from meatmodeler_tpu_torch.solvers import bundle_adjust_cuda
+    from meatmodeler_tpu_torch.tools.geometry_bench import ba_case
+
+    args = list(ba_case(case, cuda))
+    good = bundle_adjust_cuda.obs_jacobians(*args)
+    fidx, pidx = args[3].clone(), args[4].clone()
+    bad = torch.zeros(fidx.numel(), dtype=torch.bool, device=cuda)
+    for flat, which, value in ((3, fidx, 10**6), (5, pidx, -1), (fidx.numel() - 1, fidx, -7)):
+        which.view(-1)[flat] = value
+        bad[flat] = True
+    got = bundle_adjust_cuda.obs_jacobians(*args[:3], fidx, pidx, *args[5:])
+    bad = bad.view(fidx.shape)
+    for g, r in zip(got, good):
+        assert bool(g[bad].isnan().all())
+        torch.testing.assert_close(g[~bad], r[~bad], rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -780,12 +808,16 @@ def test_pnp_kernel_matches_reference(cuda, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["calibrate", "calibrate_dist5"])
+@pytest.mark.parametrize(
+    "case", ["calibrate", "calibrate_dist5", "calibrate_dist0", "calibrate_dist1", "calibrate_dist2",
+             "calibrate_dist3", "calibrate_dist4", "calibrate_128", "calibrate_384"]
+)
 def test_calib_kernel_matches_reference(cuda, case):
     """The calibration LM kernel against its plain version at the known
-    path's configuration (22 views, one focal, fixed centre, no distortion)
-    and at the general one (5 distortion coefficients, two focals, a free
-    centre, one masked view): in float64 K and the rms within 1e-4
+    path's configuration (22 views, one focal, fixed centre, no distortion),
+    at the general one with 0-5 distortion coefficients (two focals, a free
+    centre, one masked view), and at 128 and 384 views of the general one
+    (the last past the kernel's shared-memory budget): in float64 K and the rms within 1e-4
     relative, distortion and poses within 1e-4; in float32 the same where
     the plain float32 run lies within 1e-5 of float64
     (``geometry_bench.calib_determined``), equal NaN patterns everywhere.

@@ -68,7 +68,7 @@ def _np(x):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["ba_pose", *BA_EDGES, "ba_lanes"])
+@pytest.mark.parametrize("case", ["ba_pose", *BA_EDGES, "ba_lanes", "ba_wide"])
 def test_obs_jacobians_reference_matches_jax(case, dtype):
     c = ba_case(case, "cpu", dtype)
     got = ba_plain(*c)
@@ -77,7 +77,7 @@ def test_obs_jacobians_reference_matches_jax(case, dtype):
     args += [jnp.asarray(_np(x)) for x in (c.fidx, c.pidx, c.mask)]
     if c.weight is not None:
         args.append(jnp.asarray(_np(c.weight)))
-    fn = jax.vmap(jba._obs_jacobians) if case == "ba_lanes" else jba._obs_jacobians
+    fn = jax.vmap(jba._obs_jacobians) if c.cam.ndim == 3 else jba._obs_jacobians
     ref = tuple(torch.from_numpy(np.asarray(x)) for x in fn(*args))
     assert ref[0].dtype == dtype and got[0].shape == ref[0].shape and got[1].shape == ref[1].shape
     a = jacobian_agreement(got, ref)
@@ -201,7 +201,7 @@ def test_geometry_bench_work_counts():
     assert calib_row_ops(1, 0) == 21 + 4 + 2 + 6 + 75 + 4 * (27 + 7 + 1)
     assert calib_row_ops(9, 5) == 21 + 28 + 4 + 2 + 37 + 18 + 75 + 4 * 5 + 4 * (27 + 63 + 45)
     c0, c8 = calib_work(22, 12, 1, 0, 0), calib_work(22, 12, 1, 0, 8)
-    assert c0["flops"] == 22 * (44 + 12 * 31) and c8["steps"] == 73
+    assert c0["flops"] == 22 * (44 + 12 * 31) and (c8["steps"], c8["barriers"]) == (33, 25)
     assert (c8["flops"] - c0["flops"]) % 8 == 0 and c8["bytes"] == (2 * 133 + 528 + 36 + 23) * 4
     assert calib_work(22, 12, 9, 5, 1)["flops"] > calib_work(22, 12, 1, 0, 1)["flops"]
     assert calib_work(22, 12, 1, 0, 8, views=21)["flops"] < c8["flops"]
@@ -291,3 +291,79 @@ def test_geometry_bench_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal where there is no CUDA")
     assert geometry_bench.main([]) == 2
+
+
+def test_geometry_bench_compare_refuses_without_cuda(tmp_path, monkeypatch):
+    """``--compare`` (with or without ``--paths``) returns 2 where there is
+    no CUDA, before it builds or renders anything; ``--paths`` alone is a
+    usage error."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal where there is no CUDA")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("geometry_bench built or rendered without CUDA")
+
+    monkeypatch.setattr(cuda_build, "compile_source", refuse)
+    monkeypatch.setattr(geometry_bench, "known_path_calls", refuse)
+    assert geometry_bench.main(["--compare", str(tmp_path)]) == 2
+    assert geometry_bench.main(["--compare", str(tmp_path), "--paths", "--ptxas", "--launches"]) == 2
+    with pytest.raises(SystemExit) as exit_:
+        geometry_bench.main(["--paths"])
+    assert exit_.value.code == 2
+
+
+def test_launches_by_caller_names_the_innermost_caller(monkeypatch):
+    """``geometry_bench.launches_by_caller`` bills each ``obs_jacobians``
+    launch to the innermost BA caller, inside the pose chain as "pose
+    chain: <caller>", and restores every function it wraps."""
+    from meatmodeler_tpu_torch import pipeline
+
+    monkeypatch.setattr(bundle_adjust_cuda, "obs_jacobians", lambda *a, **k: None)
+    monkeypatch.setattr(bundle_adjust, "pose_only_refine", lambda: bundle_adjust_cuda.obs_jacobians())
+    monkeypatch.setattr(bundle_adjust, "adjust_points",
+                        lambda: (bundle_adjust_cuda.obs_jacobians(), bundle_adjust.pose_only_refine()))
+    monkeypatch.setattr(pipeline, "_chain_keyframe_poses",
+                        lambda: (bundle_adjust.pose_only_refine(), bundle_adjust.adjust_points()))
+    before = (bundle_adjust_cuda.obs_jacobians, bundle_adjust.adjust_points, pipeline._chain_keyframe_poses)
+
+    def run():
+        pipeline._chain_keyframe_poses()
+        bundle_adjust.adjust_points()
+        bundle_adjust_cuda.obs_jacobians()
+
+    counts = geometry_bench.launches_by_caller(run)
+    assert counts == {"pose chain: pose_only_refine": 2, "pose chain: adjust_points": 1, "adjust_points": 1,
+                      "pose_only_refine": 1, "other": 1}
+    assert (bundle_adjust_cuda.obs_jacobians, bundle_adjust.adjust_points, pipeline._chain_keyframe_poses) == before
+
+
+@pytest.mark.parametrize("k", range(6))
+def test_calib_dist_cases_fit_k_terms_to_one_scene(k):
+    """``calibrate_dist<k>`` fits k distortion terms, two focals and a free
+    centre to the pixels ``calibrate_dist5`` fits, with the last view
+    masked; ``calibrate_128`` and ``calibrate_384`` are that layout at 128
+    and 384 views."""
+    c, five = calib_case(f"calibrate_dist{k}"), calib_case("calibrate_dist5")
+    assert (c["num_dist"], c["single_focal"], c["fix_principal_point"]) == (k, False, False)
+    np.testing.assert_array_equal(c["img"], five["img"])
+    assert c["view_mask"].tolist() == [True] * 21 + [False]
+    for views in (128, 384):
+        wide = calib_case(f"calibrate_{views}")
+        assert wide["img"].shape == (views, 12, 2) and wide["num_dist"] == 5
+        assert wide["view_mask"].sum() == views - 1
+    with pytest.raises(ValueError, match="unknown calibration case"):
+        calib_case("calibrate_dist6")
+
+
+def test_wide_ba_case_is_past_the_shared_coefficient_table():
+    """``ba_wide``: 8 lanes of 128 cameras and 40 observation slots, so
+    every 64-observation block of the Jacobian kernel spans lanes with more
+    cameras than it has threads (the kernel then computes each thread's
+    camera itself)."""
+    c = ba_case("ba_wide")
+    assert tuple(c.cam.shape) == (8, 128, 6) and tuple(c.fidx.shape) == (8, 40) and c.weight is not None
+    n_obs, threads = c.fidx.shape[-1], 64
+    for g0 in range(0, c.fidx.numel(), threads):
+        last = min(g0 + threads, c.fidx.numel()) - 1
+        assert (last // n_obs - g0 // n_obs + 1) * c.cam.shape[-2] > threads
+    assert bool(((c.fidx >= 0) & (c.fidx < 128)).all()) and 0 < int(c.mask.sum()) < c.mask.numel()
