@@ -43,7 +43,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      pose-only and global problems, 8 lanes, 8 lanes of 128 cameras (past
      the kernel's shared coefficient table), and rvec 0, 1e-7, 1e-3 and
      near pi; PnP poses within 1e-4 on the starts float32 rounding does
-     not decide (all in float64); the calibration LM's K and rms within
+     not decide (all in float64) at the known path's call, a batch-row
+     clip's (11 frames), one start, a 9x6 board on 128 frames (54 corners,
+     past one warp's lanes), starts at rvec 0, 1e-7, 1e-3 and near pi, and
+     NaN pixels in two frames (those NaN, the others the clean call's bit
+     for bit), and the float division it uses (by a shared reciprocal)
+     bit for bit IEEE division's on ~3.4e7 pairs
+     (``geometry_bench.quotient_check``); the calibration LM's K and rms within
      1e-4 relative and poses within 1e-4 (float64, and float32 where it does
      not decide) at the known path's layout, with 5 distortion terms and a
      masked view, and at 128 and 384 such views (the last past the
@@ -162,7 +168,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      CLAHE input; (e) the memory band: ``adjust_points`` with a budget half
      the known path's strip raises on one GPU and shards on several; (f)
      with more than one GPU, (b)-(d) again over the distinct GPUs, through
-     NCCL, and the kernels compared on ``cuda:1``.
+     NCCL, and the kernels compared on ``cuda:1``;
+ 11. the volume tools: ``tools/ideal_visual_hull`` at its defaults gives its
+     decision record (truth 22.619, hull 36.360); ``tools/volume_validation``
+     captures its ``e2e_400`` scene (400x300, 40 frames) through ``process``
+     on the card, video alone, into a fresh directory (launch counts reset
+     just before; the path's kernels counted as in 4), and its shipped
+     variant's hull on the capture lies within 1e-4 relative of the hull the
+     captured run computed, hull and carve finite; the error against the
+     scene's truth is printed.
 Kernel times are device medians with a cold L2 and the host's launch time
 hidden (``tools/clahe_bench.time_ms``), each printed beside its bound and
 the share of it reached: for CLAHE the bytes it must move at the card's
@@ -188,6 +202,7 @@ import inspect
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -200,6 +215,7 @@ from meatmodeler_tpu_torch import pipeline
 from meatmodeler_tpu_torch.config import SolverConfig
 from meatmodeler_tpu_torch.geometry import calibration, calibration_cuda, pnp, pnp_cuda, projection, ransac, ransac_cuda, so3
 from meatmodeler_tpu_torch.io import native_ops
+from meatmodeler_tpu_torch.io.synthetic import TurntableScene
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
 from meatmodeler_tpu_torch.ops import clahe_cuda, color, cuda_build, klt, klt_cuda, matching
@@ -209,6 +225,7 @@ from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
 from meatmodeler_tpu_torch.pipeline import process
 from meatmodeler_tpu_torch.solvers import bundle_adjust, bundle_adjust_cuda
 from meatmodeler_tpu_torch.tools import geometry_bench as gb
+from meatmodeler_tpu_torch.tools import ideal_visual_hull, volume_validation
 from meatmodeler_tpu_torch.tools.clahe_bench import time_kernels
 from meatmodeler_tpu_torch.tools.klt_bench import (
     describe,
@@ -654,12 +671,34 @@ def compare_calib(label, args, err):
     return int(got32[2])
 
 
+def check_pnp_nan(dev, dtype):
+    """The PnP kernel with NaN pixels in two frames (``geometry_bench.
+    PNP_NAN``): those frames' poses and costs NaN, every other frame's bit
+    for bit the clean call's."""
+    nan = pnp_cuda.pnp_refine(*gb.pnp_refine_case(gb.PNP_NAN, dev, dtype))
+    clean = pnp_cuda.pnp_refine(*gb.pnp_refine_case("pnp", dev, dtype))
+    bad = list(gb.PNP_NAN_FRAMES)
+    keep = [f for f in range(clean[0].shape[1]) if f not in bad]
+    torch.cuda.synchronize()
+    if not (bool(nan[0][:, bad].isnan().all()) and bool(nan[1][:, bad].isnan().all())):
+        raise AssertionError("pnp_refine gave a finite pose or cost for a frame with NaN pixels")
+    if not (torch.equal(nan[0][:, keep], clean[0][:, keep]) and torch.equal(nan[1][:, keep], clean[1][:, keep])):
+        raise AssertionError("NaN pixels in one frame changed pnp_refine's other frames")
+    print(f"kernel check pnp_refine NaN frames {bad} {str(dtype)[6:]}: NaN there, the other frames the clean call's")
+
+
 def compare_geometry_seeded(dev, err):
     """Phase 3d: the three geometry kernels on seeded boards and BA problems."""
     for dtype in (torch.float32, torch.float64):
         for name in (*gb.BA_CASES, gb.BA_WIDE):
             compare_obs_jacobians(f"seeded {name}", tuple(gb.ba_case(name, dev, dtype)), err)
-        compare_pnp("seeded known-path shape", gb.pnp_args(gb.pnp_case(), dev, dtype), err)
+        for name in gb.COMPARE_PNP:
+            compare_pnp(f"seeded {name}", gb.pnp_refine_case(name, dev, dtype), err)
+        check_pnp_nan(dev, dtype)
+    q = gb.quotient_check(dev)
+    print(f"kernel check pnp_refine's float division by a shared reciprocal against IEEE division: {json.dumps(q)}")
+    if q["mismatches"] or q["unsafe_specials_marked_safe"]:
+        raise AssertionError("the shared-reciprocal division differs from IEEE division")
     for name in ("calibrate", "calibrate_dist5", gb.CALIB_WIDE, gb.CALIB_WIDER):
         compare_calib(f"seeded {name}", gb.lm_args(gb.calib_case(name), dev), err)
 
@@ -1209,6 +1248,47 @@ def run_mesh(dev, problem, pair, frames, err, timings):
     return launches
 
 
+def run_volume_tools():
+    """Phase 11: the volume tools. ``ideal_visual_hull`` at its defaults
+    must give its docstring's record (truth 22.619, hull 36.360); then
+    ``volume_validation`` captures its ``e2e_400`` scene through
+    ``process`` on the card into a fresh directory (launch counts reset
+    just before, read just after: the video-alone path's kernels) and
+    evaluates the shipped variant (gated, trim 5, trim_ref 1500, inflate
+    0) on the capture: finite, and its hull within 1e-4 relative of the
+    hull the captured run computed (the same function on the same inputs).
+    Returns the launches."""
+    t0 = time.perf_counter()
+    scene = TurntableScene(image_size=(1920, 1080), focal=1500.0, arc_degrees=50.0)
+    hull_ideal = ideal_visual_hull.ideal_visual_hull(scene, 20, 96)
+    print(f"[volume] ideal_visual_hull: truth {scene.volume:.3f}, hull {hull_ideal:.3f}, ratio "
+          f"{hull_ideal / scene.volume:.3f} ({time.perf_counter() - t0:.2f} s)")
+    if (round(scene.volume, 3), round(hull_ideal, 3)) != (22.619, 36.360):
+        raise AssertionError("ideal_visual_hull does not give its decision record")
+    vscene, n_frames, vconfig = volume_validation.validation_scenes()["e2e_400"]
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp, geometry_counts() as calls:
+        t0 = time.perf_counter()
+        cap = volume_validation.capture_scene("e2e_400", vscene, n_frames, vconfig, "cuda", Path(tmp))
+        wall = time.perf_counter() - t0
+        if not (Path(tmp) / "volval_torch_e2e_400.npz").exists():
+            raise AssertionError("volume_validation wrote no capture")
+    launches = counts()
+    check_geometry("volume", launches, calls, board=True)
+    if min(launches[k] for k in (*CLAHE, "lk_track")) <= 0:
+        raise AssertionError(f"a kernel of the volume path never launched: {launches}")
+    hull, carve = volume_validation.eval_variant(cap, volume_validation.cfg_of(cap), "gated", 5, trim_ref=1500)
+    run_hull, truth = float(cap["run_hull"]), float(cap["truth"])
+    rel = abs(hull - run_hull) / abs(run_hull)
+    print(f"[volume] e2e_400 captured on the card in {wall:.2f} s ({int(cap['n_kf'])} keyframes, "
+          f"{len(cap['pts'])} points), launches {launches}; shipped variant hull {hull:.4f} carve {carve:.4f} "
+          f"(the run's hull {run_hull:.4f}, |d| {rel:.3g} relative), truth {truth:.4f}, error "
+          f"{hull / truth - 1.0:+.4f}")
+    if not (np.isfinite(hull) and np.isfinite(carve) and rel <= 1e-4):
+        raise AssertionError("the volume harness disagrees with the captured run's hull")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1376,6 +1456,8 @@ def main() -> int:
     # Phase 10: the mesh.
     launches_s = run_mesh(dev, ba_problem, kf_pair, frames32, err, timings)
     add_counts(launches, launches_s)
+    # Phase 11: the volume tools.
+    add_counts(launches, run_volume_tools())
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "meatmodeler_tpu", "bench"))
     if loaded:
         raise AssertionError(f"the port loaded the JAX package or its bench: {loaded}")

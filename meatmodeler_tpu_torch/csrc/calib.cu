@@ -199,78 +199,6 @@ __device__ __forceinline__ void intrinsics_of(const T (&ti)[MI], const Layout& L
   for (int j = 0; j < 5; ++j) dist[j] = j < L.num_dist ? pick(ti, L.n_focal + L.n_pp + j) : T(0);
 }
 
-// Solves m x = r in place for right sides in r's columns (n x n, n <= N,
-// row strides MS and RS) by LU with partial pivoting -- pinhole::lu_solve's
-// operations and pivots, the first largest |pivot| on ties -- on a group
-// of lanes: each lane updates matrix column mc and right-side column rc
-// (-1: none) and every lane of the warp runs it (its __syncwarp()s). The
-// row exchanges are kept as a permutation (every lane alike) instead of
-// being made, so a column needs one __syncwarp. x replaces r (in order);
-// m is left factored, its rows permuted.
-template <int N, int MS, int RS>
-__device__ __forceinline__ void group_lu_solve(Acc* m, Acc* r, int n, int mc, int rc) {
-  int perm[N];
-#pragma unroll
-  for (int q = 0; q < N; ++q) perm[q] = q;
-#pragma unroll
-  for (int col = 0; col < N; ++col) {
-    if (col >= n) break;
-    int piv = col;
-    Acc best = pinhole::pabs(m[perm[col] * MS + col]);
-#pragma unroll
-    for (int q = col + 1; q < N; ++q) {
-      if (q < n) {
-        const Acc a = pinhole::pabs(m[perm[q] * MS + col]);
-        if (a > best) {
-          best = a;
-          piv = q;
-        }
-      }
-    }
-#pragma unroll
-    for (int q = col + 1; q < N; ++q) {
-      if (q == piv) {
-        const int t = perm[q];
-        perm[q] = perm[col];
-        perm[col] = t;
-      }
-    }
-    const int top = perm[col];
-    const Acc pivot = m[top * MS + col];
-    const Acc mine = mc > col ? m[top * MS + mc] : 0.0;
-    const Acc rhs = rc >= 0 ? r[top * RS + rc] : 0.0;
-#pragma unroll
-    for (int q = col + 1; q < N; ++q) {
-      if (q < n) {
-        const int row = perm[q];
-        const Acc f = m[row * MS + col] / pivot;
-        if (mc > col) m[row * MS + mc] -= f * mine;
-        if (rc >= 0) r[row * RS + rc] -= f * rhs;
-      }
-    }
-    __syncwarp();
-  }
-  if (rc >= 0) {
-    Acc x[N];
-#pragma unroll
-    for (int i = N - 1; i >= 0; --i) {
-      x[i] = 0.0;
-      if (i < n) {
-        const int row = perm[i];
-        Acc s = r[row * RS + rc];
-#pragma unroll
-        for (int j = i + 1; j < N; ++j)
-          if (j < n) s -= m[row * MS + j] * x[j];
-        x[i] = s / m[row * MS + i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (i < n) r[i * RS + rc] = x[i];
-  }
-  __syncwarp();
-}
-
 // Twice the cost of view v under K trials' intrinsics (kt, dt) and poses,
 // in double: the sums over its points of r_x^2 + r_y^2, (proj - img) *
 // vmask, each trial's in point order; valid in lane 0. Every lane of the
@@ -408,7 +336,7 @@ __device__ __forceinline__ void view_terms(Acc* va, T* rows, Acc* lu, const Layo
   __syncwarp();
   const int h = lane >> 4, hl = lane & 15;
   Acc* xt = va + kTrial0 + h * kTrial;
-  group_lu_solve<6, 6, 10>(lu + 36 * h, xt + kX, 6, hl < 6 ? hl : -1, hl < ni ? hl : (hl == ni ? kMaxIntr : -1));
+  pinhole::group_lu_solve<6, 6, 10>(lu + 36 * h, xt + kX, 6, hl < 6 ? hl : -1, hl < ni ? hl : (hl == ni ? kMaxIntr : -1));
   // S_v = B_v X_B and s_v = B_v X_g.
   for (int e = hl; e < ni * (ni + 1); e += 16) {
     const int r = e / (ni + 1), c = e % (ni + 1);
@@ -632,7 +560,7 @@ __global__ void __launch_bounds__(max_warps<T>() * 32) calib_lm_kernel(
         }
       }
       __syncwarp();
-      group_lu_solve<MI, kMaxIntr, 1>(sm, sm + 81, ni, lane < ni ? lane : -1, lane == 0 ? 0 : -1);
+      pinhole::group_lu_solve<MI, kMaxIntr, 1>(sm, sm + 81, ni, lane < ni ? lane : -1, lane == 0 ? 0 : -1);
       if (lane < ni) {
         misc[kDi + kMaxIntr * t + lane] = sm[81 + lane];
         misc[kCi + kMaxIntr * t + lane] = Acc(T(Acc(pick(ti, lane)) - sm[81 + lane]));

@@ -15,6 +15,11 @@ import torch
 __all__ = ["Matches", "hamming_matrix", "match_descriptors"]
 
 _BIG = 1e9
+# Pairs matched at once hold at most this many (Q, T) distances: the eager
+# distance matrix and its temporaries take ~5 x 4 bytes an entry, and all
+# pairs at once at the default 20000 features (1.6 GB a pair) outgrow an
+# 80 GB card from ~12 keyframe pairs on.
+_BLOCK_ENTRIES = 1 << 30
 
 
 class Matches(NamedTuple):
@@ -44,7 +49,18 @@ def match_descriptors(
 ) -> Matches:
     """knnMatch(k=2) + Lowe ratio + optional mutual-nearest check; matches
     come out best-distance-first (ties toward the lower query index, as
-    ``lax.top_k`` orders them)."""
+    ``lax.top_k`` orders them). A leading pair axis is matched in blocks of
+    at most ``_BLOCK_ENTRIES`` distances (each pair on its own, so the
+    result is the same)."""
+    pairs = query.shape[0] if query.ndim == 3 else 1
+    per = max(1, _BLOCK_ENTRIES // max(1, query.shape[-2] * train.shape[-2]))
+    if per < pairs:
+        parts = [
+            match_descriptors(query[i:i + per], train[i:i + per], query_mask[i:i + per], train_mask[i:i + per],
+                              ratio, max_distance, max_matches, cross_check)
+            for i in range(0, pairs, per)
+        ]
+        return Matches(*(torch.cat(x) for x in zip(*parts)))
     big = torch.tensor(_BIG, dtype=torch.float32, device=query.device)
     d = hamming_matrix(query, train)
     d = torch.where(train_mask[..., None, :], d, big)

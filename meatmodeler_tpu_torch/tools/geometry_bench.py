@@ -7,7 +7,8 @@ iteration), ``pnp_refine`` (``csrc/pnp.cu``, one launch per
 ``solve_pnp_batch``) and ``calib_lm`` (``csrc/calib.cu``, one launch per
 calibration LM run). At seeded inputs of their callers' shapes (the known
 path's 22 keyframes of a (4, 3) board at the pass-2 resolution 960x540,
-its pose-only and global BA problems, a batch of 8 lanes): each
+its pose-only and global BA problems, a batch of 8 lanes; the PnP cases
+``pnp_refine_case`` builds): each
 kernel's device time, its plain PyTorch version's, the work the call needs,
 the bound it sets and the share of it reached. Times are
 ``clahe_bench.time_ms``'s: medians with a cold L2 and the host's launch
@@ -61,17 +62,20 @@ sets its time.
 
   --ptxas    compiles the three sources once more with ``-Xptxas -v`` and
              prints each kernel's registers, shared memory and spills.
-  --compare  builds another design's ``ba_jac.cu`` and ``calib.cu`` from
-             OTHER_DIR (an earlier tree's ``csrc``, its own
+  --compare  builds another design's ``ba_jac.cu``, ``calib.cu`` and
+             ``pnp.cu`` from OTHER_DIR (an earlier tree's ``csrc``, its own
              ``pinhole_jet.cuh`` beside them) and times both designs at the
-             same inputs in turns (this, other, other, this): the BA cases
-             and the calibration cases of ``COMPARE_BA`` / ``COMPARE_CALIB``,
-             and with ``--paths`` also at the known path's first calls (its
-             two LM runs, its first pose-only and global BA Jacobians,
-             recorded from one ``process`` of the headline clip with its
-             corners). Both designs' outputs must agree: the Jacobians bit
-             for bit, or within ``JAC_TOL``; the LM runs in iterations and
-             by ``calib_agrees``. Exits 1 where they do not.
+             same inputs in turns (this, other, other, this): the cases of
+             ``COMPARE_BA``, ``COMPARE_CALIB`` and ``COMPARE_PNP`` in both
+             dtypes, and with ``--paths`` also at the known path's first
+             calls (its two LM runs, its two PnP refinements, its first
+             pose-only and global BA Jacobians, recorded from one
+             ``process`` of the headline clip with its corners). Both
+             designs' outputs must agree: the Jacobians bit for bit, or
+             within ``JAC_TOL``; the LM runs in iterations and by
+             ``calib_agrees``; the PnP poses and costs bit for bit, or by
+             ``pnp_agrees`` on the starts ``pnp_held`` keeps. Exits 1
+             where they do not.
   --launches counts ``obs_jacobians`` launches by caller over one
              marker-free run (``markerless_clip``, ``markerless_config``:
              the pose chain's ``pose_only_refine`` and in-chain
@@ -144,6 +148,17 @@ CALIB_DIST_CASES = tuple(f"calibrate_dist{k}" for k in range(6))
 # budget (its views' terms then go to the global workspace).
 CALIB_WIDE = "calibrate_128"
 CALIB_WIDER = "calibrate_384"
+# ``pnp_refine``'s calls: the known path's (both twins of 22 frames), a
+# batch-row clip's (11 keyframes, as the batch row's calls have) and
+# ``refine_pose``'s single start; 54 corners of a 9x6 board (past one
+# warp's lanes) on max_keyframes (128) frames; starts at the rotation's
+# branches (rvec 0, 1e-7: the Taylor branch; 1e-3: the closed form under
+# cancellation; near pi); NaN pixels in two frames.
+PNP_CASES = ("pnp", "pnp_batch", "pnp_single")
+PNP_WIDE = "pnp_wide"
+PNP_EDGES = ("pnp_rvec0", "pnp_rvec1e-7", "pnp_rvec1e-3", "pnp_near_pi")
+PNP_NAN = "pnp_nan"
+PNP_NAN_FRAMES = (5, 9)  # all of frame 5's pixels NaN, one coordinate of frame 9's
 
 
 def _rodrigues(rv: np.ndarray) -> np.ndarray:
@@ -158,17 +173,17 @@ def _log(rot: np.ndarray) -> np.ndarray:
     return so3.log(torch.from_numpy(rot)).numpy()
 
 
-def board_poses(frames: int, seed: int, xz: bool = False) -> np.ndarray:
-    """(F, 6) poses seeing a (4, 3) board from 14-22 units, tilted up to
-    ~35 degrees: of the z = 0 unit board, or (``xz``) of the X-Z board with
-    2-unit squares (the pipeline's)."""
+def board_poses(frames: int, seed: int, xz: bool = False, pattern: Tuple[int, int] = PATTERN) -> np.ndarray:
+    """(F, 6) poses seeing a board of ``pattern`` inner corners from 14-22
+    units, aimed at its centre and tilted up to ~35 degrees: the z = 0 unit
+    board, or (``xz``) the X-Z board with 2-unit squares (the pipeline's)."""
     rng = np.random.default_rng(seed)
     out = []
     for i in range(frames):
         rv = np.array([0.5 * np.sin(0.7 * i), 0.5 * np.cos(0.5 * i), 0.2 * rng.normal()])
         rv = rv * rng.uniform(0.3, 1.2)
         r0 = _rodrigues(rv)
-        center = np.array([1.5, 1.0, 0.0]) * (2.0 if xz else 1.0)
+        center = np.array([(pattern[0] - 1) / 2, (pattern[1] - 1) / 2, 0.0]) * (2.0 if xz else 1.0)
         t = -r0 @ center + np.array([rng.normal() * 0.5, rng.normal() * 0.5, rng.uniform(14, 22) * (2 if xz else 1)])
         if xz:  # p_z0 = M^T p_xz with M (x, y, z) -> (x, -z, y)
             m = np.array([[1.0, 0, 0], [0, 0, -1.0], [0, 1.0, 0]])
@@ -248,6 +263,59 @@ def pnp_args(case, device, dtype=torch.float32, iters: int = 10) -> tuple:
     plane, obj, img, k = (torch.from_numpy(x).to(device, dtype) for x in case)
     init_a, init_b = pnp.solve_pnp_planar(plane, (0, 2), img, k)
     return torch.stack([init_a, init_b]), obj, img, k, iters, 1e-8
+
+
+def pnp_refine_case(name: str, device="cpu", dtype=torch.float32, seed: int = 0) -> tuple:
+    """``pnp_cuda.pnp_refine``'s arguments at one of ``PNP_CASES``,
+    ``PNP_WIDE``, ``PNP_EDGES`` or ``PNP_NAN`` (see there): the planar twins
+    of ``pnp_case``'s frames as the starts; ``pnp_wide`` on the z = 0 unit
+    board (as ``calib_case``'s) with its planar twins; at an edge, the z = 0
+    unit (4, 3) board seen from poses whose rvec is the edge's, twin 0
+    starting at that pose exactly and twin 1 at its planar twin; at
+    ``pnp_nan`` the known path's starts with NaN written into the pixels of
+    ``PNP_NAN_FRAMES``."""
+    if name in ("pnp", PNP_NAN):
+        args = pnp_args(pnp_case(seed), device, dtype)
+        if name == PNP_NAN:
+            img = args[2].clone()
+            img[PNP_NAN_FRAMES[0]] = math.nan
+            img[PNP_NAN_FRAMES[1], 3, 0] = math.nan
+            args = (args[0], args[1], img, *args[3:])
+        return args
+    if name == "pnp_batch":
+        return pnp_args(pnp_case(seed, frames=11), device, dtype)
+    if name == "pnp_single":
+        poses, obj, img, *rest = pnp_args(pnp_case(seed), device, dtype)
+        return (poses[:1, :1].contiguous(), obj, img[:1].contiguous(), *rest)
+    if name != PNP_WIDE and name not in PNP_EDGES:
+        raise ValueError(f"unknown PnP case {name!r}")
+    rng = np.random.default_rng(seed + 300)
+    pattern, frames = ((9, 6), 128) if name == PNP_WIDE else (PATTERN, FRAMES)
+    obj = calibration.chessboard_object_points(pattern, torch.float64).numpy()
+    poses = board_poses(frames, seed, pattern=pattern)
+    if name in PNP_EDGES:
+        u = np.array([0.6, -0.8, 0.0])
+        if name == "pnp_rvec0":
+            rv = np.zeros((FRAMES, 3))
+        elif name == "pnp_rvec1e-7":
+            rv = 1e-7 * u * rng.uniform(0.5, 1.5, size=(FRAMES, 1))
+        elif name == "pnp_rvec1e-3":
+            rv = 1e-3 * u * rng.uniform(0.5, 1.5, size=(FRAMES, 1))
+        else:
+            axis = np.array([0.0, 1.0, 0.1]) / np.linalg.norm([0.0, 1.0, 0.1])
+            rv = (math.pi - np.logspace(-4, -1, FRAMES))[:, None] * axis
+        center = np.array([1.5, 1.0, 0.0])
+        for f in range(frames):
+            poses[f, 3:] = -_rodrigues(rv[f]) @ center + [0.0, 0.0, poses[f, 5]]
+        poses[:, :3] = rv
+    img = _project(obj, poses, K_HEADLINE) + rng.normal(scale=0.3, size=(frames, obj.shape[0], 2))
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device, dtype)
+
+    obj_t, img_t, k_t = t(obj), t(img), t(K_HEADLINE)
+    init, twin = pnp.solve_pnp_planar(obj_t[:, :2], (0, 1), img_t, k_t)
+    return torch.stack([init if name == PNP_WIDE else t(poses), twin]), obj_t, img_t, k_t, 10, 1e-8
 
 
 class BACase(NamedTuple):
@@ -583,11 +651,33 @@ def raw_calib(lib: ctypes.CDLL, args) -> Callable[[], None]:
     return run
 
 
+def raw_pnp(lib: ctypes.CDLL, args) -> Callable[[], None]:
+    """One launch of ``lib``'s ``pnp_refine`` on ``pnp_cuda.pnp_refine``'s
+    arguments, as ``raw_ba``; outputs (poses, costs)."""
+    poses, obj, img, k, iters, damping = args
+    t, f = poses.shape[:2]
+    out = torch.empty_like(poses)
+    cost = torch.empty((t, f), dtype=poses.dtype, device=poses.device)
+    tensors = [x.contiguous() for x in (poses, obj, img, k)]
+    ptrs = [x.data_ptr() for x in tensors]
+    fn = getattr(lib, pnp_cuda._ENTRY[poses.dtype])
+    stream = torch.cuda.current_stream(poses.device).cuda_stream
+
+    def run():
+        code = fn(*ptrs, t, f, obj.shape[0], iters, float(damping), out.data_ptr(), cost.data_ptr(), stream)
+        if code != 0:
+            raise RuntimeError(f"pnp_refine launch failed: cudaError {code}")
+
+    run.outputs, run.tensors = (out, cost), tensors
+    return run
+
+
 def known_path_calls(device) -> Dict[str, tuple]:
-    """The known path's first calls of the two kernels: {"calib_lm call 1",
-    "calib_lm call 2": ``run_lm`` arguments, "pose-only BA", "global BA":
-    ``obs_jacobians`` arguments}, from one ``process`` of the headline clip
-    with its corners."""
+    """The known path's first calls of the three kernels: {"calib_lm call
+    1", "calib_lm call 2": ``run_lm`` arguments, "pnp_refine call 1",
+    "pnp_refine call 2": ``pnp_refine`` arguments, "pose-only BA", "global
+    BA": ``obs_jacobians`` arguments}, from one ``process`` of the headline
+    clip with its corners."""
     from meatmodeler_tpu_torch.pipeline import process
     from meatmodeler_tpu_torch.tools.profile_headline import headline_clip, headline_config, recording
 
@@ -617,7 +707,7 @@ def known_path_calls(device) -> Dict[str, tuple]:
     bundle_adjust.adjust_pose, bundle_adjust.adjust_points = within(real[0], "pose-only BA"), within(real[1], "global BA")
     bundle_adjust_cuda.obs_jacobians = ba
     try:
-        with recording(calibration_cuda, "calib_lm") as calib_calls:
+        with recording(calibration_cuda, "calib_lm") as calib_calls, recording(pnp_cuda, "pnp_refine") as pnp_calls:
             process(frames, config=headline_config(), known_corners=corners, device=device.type)
     finally:
         bundle_adjust.adjust_pose, bundle_adjust.adjust_points = real
@@ -627,6 +717,10 @@ def known_path_calls(device) -> Dict[str, tuple]:
         bound = inspect.signature(calibration.run_lm).bind(*call[0], **call[1])
         bound.apply_defaults()
         out[f"calib_lm call {i + 1}"] = tuple(bound.arguments.values())
+    for i, call in enumerate(pnp_calls[:2]):
+        bound = inspect.signature(pnp_cuda.pnp_refine).bind(*call[0], **call[1])
+        bound.apply_defaults()
+        out[f"pnp_refine call {i + 1}"] = tuple(bound.arguments.values())
     for label in ("pose-only BA", "global BA"):
         out[label] = first[label]
     return out
@@ -683,36 +777,135 @@ def launches_by_caller(run: Callable[[], object]) -> Dict[str, int]:
     return counts
 
 
+QUOTIENT_SOURCE = r"""
+#include "pinhole_jet.cuh"
+__global__ void quotients_kernel(const float* a, const float* b, float* fast, float* ieee, unsigned char* safe, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fast[i] = pinhole::quotient(a[i], pinhole::divisor(b[i]));
+  ieee[i] = a[i] / b[i];
+  safe[i] = pinhole::divisor_safe(b[i]) && pinhole::numerator_safe(a[i]);
+}
+extern "C" int quotients(const void* a, const void* b, void* fast, void* ieee, void* safe, int n, void* stream) {
+  quotients_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(fast), static_cast<float*>(ieee),
+      static_cast<unsigned char*>(safe), n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _floats(gen: torch.Generator, n: int, lo: int, hi: int, device) -> torch.Tensor:
+    """n float32 with random signs and mantissas, exponents in [lo, hi]."""
+    bits = torch.randint(0, 1 << 23, (n,), generator=gen, device=device, dtype=torch.int64)
+    bits |= (torch.randint(lo, hi + 1, (n,), generator=gen, device=device, dtype=torch.int64) + 127) << 23
+    bits |= torch.randint(0, 2, (n,), generator=gen, device=device, dtype=torch.int64) << 31
+    return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32).view(torch.float32)
+
+
+def quotient_check(device, n: int = 1 << 24, seed: int = 0) -> Dict[str, int]:
+    """``pinhole_jet.cuh``'s float division by a shared reciprocal
+    (``divisor`` / ``quotient``, which ``pnp.cu`` divides with) against
+    IEEE division (``/`` in the same build), bit for bit wherever
+    ``divisor_safe`` and ``numerator_safe`` hold: ``n`` random pairs over
+    the whole safe range, ``n`` pairs whose quotient lies within an ulp of
+    a rounding midpoint, exact quotients, zeros of both signs, powers of
+    two and the range's ends; NaN, infinities, denormals and pairs beyond
+    the range must not be safe (callers divide those with ``/``). Returns
+    the counts {"pairs", "safe", "mismatches", "unsafe_specials_marked_safe"}."""
+    import ctypes as ct
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = _floats(gen, n, -48, 48, device)
+    b = _floats(gen, n, -48, 48, device)
+    # Next to a rounding midpoint: a = RN(b (q + ulp(q) / 2)).
+    q = _floats(gen, n, -20, 20, device)
+    bm = _floats(gen, n, -20, 20, device)
+    half_ulp = torch.ldexp(torch.ones_like(q, dtype=torch.float64), torch.frexp(q.double())[1] - 25)
+    am = (bm.double() * (q.double() + half_ulp)).float()
+    # Exact quotients: 10-bit mantissas times integers under 1024 fit 24 bits.
+    exact_b = (_floats(gen, 4096, -20, 20, device).view(torch.int32) & ~((1 << 13) - 1)).view(torch.float32)
+    exact_a = (exact_b.double() * torch.randint(-1023, 1024, (4096,), generator=gen, device=device)).float()
+    ends = torch.tensor([2.0**-48, 2.0**48 * 1.9999999, -(2.0**-48), 1.0, -1.0, 3.0, 0.5], device=device)
+    zeros = torch.tensor([0.0, -0.0], device=device)
+    special = torch.tensor([math.nan, math.inf, -math.inf, 1e-40, -1e-40, 2.0**-49, 2.0**49, 3e38, 0.0],
+                           device=device)
+    a_all = torch.cat([a, am, exact_a, ends.repeat_interleave(len(ends)), zeros.repeat(len(ends)),
+                       special.repeat_interleave(len(ends)), ends.repeat(len(special))])
+    b_all = torch.cat([b, bm, exact_b, ends.repeat(len(ends)), ends.repeat_interleave(2),
+                       ends.repeat(len(special)), special.repeat_interleave(len(ends))])
+    a_all, b_all = a_all.float().contiguous(), b_all.float().contiguous()
+    n_all = a_all.numel()
+    fast, ieee = torch.empty_like(a_all), torch.empty_like(a_all)
+    safe = torch.empty(n_all, dtype=torch.uint8, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "quotients.cu"
+        src.write_text(QUOTIENT_SOURCE)
+        cuda_build.compile_source(src, Path(tmp) / "libquotients.so", ("-fmad=false", "-I", str(cuda_build.CSRC)))
+        lib = ct.CDLL(str(Path(tmp) / "libquotients.so"))
+    p = ct.c_void_p
+    lib.quotients.argtypes = [p, p, p, p, p, ct.c_int, p]
+    lib.quotients.restype = ct.c_int
+    code = lib.quotients(a_all.data_ptr(), b_all.data_ptr(), fast.data_ptr(), ieee.data_ptr(), safe.data_ptr(), n_all,
+                         torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"quotients launch failed: cudaError {code}")
+    torch.cuda.synchronize(device)
+    held = safe.bool()
+    differ = fast.view(torch.int32) != ieee.view(torch.int32)
+    specials = (~torch.isfinite(a_all) | ~torch.isfinite(b_all) | (b_all == 0)
+                | ((a_all != 0) & (a_all.abs() < 2.0**-48)) | (b_all.abs() < 2.0**-48)
+                | (a_all.abs() >= 2.0**49) | (b_all.abs() >= 2.0**49))
+    return {"pairs": n_all, "safe": int(held.sum()), "mismatches": int((held & differ).sum()),
+            "unsafe_specials_marked_safe": int((held & specials).sum())}
+
+
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
 
 
 COMPARE_BA = ("ba_pose", "ba_global", "ba_lanes", BA_WIDE)
 COMPARE_CALIB = ("calibrate", "calibrate_dist5", CALIB_WIDE, CALIB_WIDER)
+COMPARE_PNP = (*PNP_CASES, PNP_WIDE, *PNP_EDGES, PNP_NAN)
+
+
+def pnp_held(args) -> torch.Tensor:
+    """(T, F) the starts of a ``pnp_refine`` call that float32 rounding
+    does not decide (``pnp_determined`` of its plain version; every start
+    in float64)."""
+    poses = args[0]
+    if poses.dtype == torch.float64:
+        return torch.ones(poses.shape[:2], dtype=torch.bool, device=poses.device)
+    f64 = tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
+    return pnp_determined(pnp_plain(*args)[0], pnp_plain(*f64)[0])
 
 
 def compare(other: Path, device, paths: bool) -> bool:
-    """Both designs of the two kernels at the same inputs, in turns this,
+    """Both designs of the three kernels at the same inputs, in turns this,
     other, other, this (see ``--compare``); prints each input's medians (us)
     and the designs' agreement, returns whether every input agreed."""
     inputs = [(f"obs_jacobians {name} {str(dt)[6:]}", "ba", tuple(ba_case(name, device, dt)))
               for dt in (torch.float32, torch.float64) for name in (*COMPARE_BA, *BA_EDGES)]
     inputs += [(f"calib_lm {name} {str(dt)[6:]}", "calib", lm_args(calib_case(name), device, dt))
                for dt in (torch.float32, torch.float64) for name in COMPARE_CALIB]
+    inputs += [(f"pnp_refine {name} {str(dt)[6:]}", "pnp", pnp_refine_case(name, device, dt))
+               for dt in (torch.float32, torch.float64) for name in COMPARE_PNP]
     if paths:
         for label, args in known_path_calls(device).items():
-            inputs.append((f"known path {label}", "calib" if label.startswith("calib") else "ba", args))
+            kind = "calib" if label.startswith("calib") else ("pnp" if label.startswith("pnp") else "ba")
+            inputs.append((f"known path {label}", kind, args))
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         libs = {}
-        for kind, mod, name in (("ba", bundle_adjust_cuda, "ba_jac"), ("calib", calibration_cuda, "calib")):
+        for kind, mod, name in (("ba", bundle_adjust_cuda, "ba_jac"), ("calib", calibration_cuda, "calib"),
+                                ("pnp", pnp_cuda, "pnp")):
             path = Path(tmp) / f"{name}.so"
             cuda_build.compile_source(other / f"{name}.cu", path, mod.NVCC_EXTRA)
             lib = ctypes.CDLL(str(path))
             mod._bind(lib)
             libs[kind] = {"this": mod.build(), "other": lib}
         for label, kind, args in inputs:
-            raw = raw_ba if kind == "ba" else raw_calib
+            raw = {"ba": raw_ba, "calib": raw_calib, "pnp": raw_pnp}[kind]
             runs = {which: raw(lib, args) for which, lib in libs[kind].items()}
             times = {"this": [], "other": []}
             for which in ("this", "other", "other", "this"):
@@ -722,6 +915,11 @@ def compare(other: Path, device, paths: bool) -> bool:
                 bit = all(_same(a, b) for a, b in zip(got, ref))
                 a = jacobian_agreement(got, ref)
                 agrees = bit or jacobians_agree(a, JAC_TOL if args[0].dtype == torch.float32 else 1e-12)
+                verdict = "bit for bit" if bit else f"not bit for bit: {a}"
+            elif kind == "pnp":
+                bit = all(_same(a, b) for a, b in zip(got, ref))
+                a = None if bit else pnp_agreement(got, ref, pnp_held(args))
+                agrees = bit or pnp_agrees(a)
                 verdict = "bit for bit" if bit else f"not bit for bit: {a}"
             else:
                 theta0, img, mask = args[0], args[1], args[8]

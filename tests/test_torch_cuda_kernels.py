@@ -778,20 +778,28 @@ def test_obs_jacobians_kernel_gives_nan_rows_for_bad_indices(cuda, case):
         torch.testing.assert_close(g[~bad], r[~bad], rtol=0, atol=0)
 
 
+PNP_CASES = ["pnp", "pnp_batch", "pnp_single", "pnp_wide", "pnp_rvec0", "pnp_rvec1e-7", "pnp_rvec1e-3",
+             "pnp_near_pi", "pnp_nan"]  # geometry_bench.COMPARE_PNP
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", PNP_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_pnp_kernel_matches_reference(cuda, dtype):
+def test_pnp_kernel_matches_reference(cuda, dtype, case):
     """The PnP kernel against its plain version at the known path's shape
-    (both twins of 22 frames, 12 corners): poses within 1e-4 on the starts
-    whose plain float32 result lies within 1e-5 of float64 (all of them in
-    float64), NaN patterns equal; ``refine_pose`` of one (6,) pose gives the
-    batch's first pose; one launch a ``solve_pnp_batch``."""
+    (both twins of 22 frames, 12 corners) and at ``geometry_bench``'s other
+    PnP cases (a batch-row clip's 11 frames, one start, 54 corners of a 9x6
+    board on 128 frames, starts at rvec 0, 1e-7, 1e-3 and near pi, NaN
+    pixels in two frames): poses within 1e-4 on the starts whose plain
+    float32 result lies within 1e-5 of float64 (all of them in float64),
+    NaN patterns equal; ``refine_pose`` of one (6,) pose gives the batch's
+    first pose; one launch a ``solve_pnp_batch``."""
     from meatmodeler_tpu_torch.geometry import pnp, pnp_cuda
     from meatmodeler_tpu_torch.tools.geometry_bench import (
-        pnp_agreement, pnp_agrees, pnp_args, pnp_case, pnp_determined, pnp_plain,
+        pnp_agreement, pnp_agrees, pnp_case, pnp_determined, pnp_plain, pnp_refine_case,
     )
 
-    args = pnp_args(pnp_case(), cuda, dtype)
+    args = pnp_refine_case(case, cuda, dtype)
     got = pnp_cuda.pnp_refine(*args)
     ref = pnp_plain(*args)
     ref64 = pnp_plain(*(a.double() if isinstance(a, torch.Tensor) else a for a in args))
@@ -800,11 +808,46 @@ def test_pnp_kernel_matches_reference(cuda, dtype):
     assert pnp_agrees(a), a
     one = pnp.refine_pose(args[0][0, 0], args[1], args[2][0], args[3])
     assert one.shape == (6,)
-    torch.testing.assert_close(one, got[0][0, 0], rtol=0, atol=0)
+    torch.testing.assert_close(one, got[0][0, 0], rtol=0, atol=0, equal_nan=True)
     plane, obj, img, k = (torch.from_numpy(x).to(cuda, dtype) for x in pnp_case())
     before = pnp_cuda.LAUNCHES["pnp_refine"]
     poses = pnp.solve_pnp_batch(plane, (0, 2), obj, img, k)
     assert pnp_cuda.LAUNCHES["pnp_refine"] == before + 1 and poses.shape == (22, 6)
+
+
+@pytest.mark.gpu
+def test_shared_reciprocal_division_is_ieee(cuda):
+    """``pinhole_jet.cuh``'s float division by a shared reciprocal (which
+    ``pnp.cu`` divides with) gives IEEE division's bits on every pair it
+    calls safe, random and next to rounding midpoints, and calls no NaN,
+    infinity, denormal or out-of-range operand safe
+    (``geometry_bench.quotient_check``)."""
+    from meatmodeler_tpu_torch.tools.geometry_bench import quotient_check
+
+    r = quotient_check(cuda, n=1 << 22)
+    assert r["mismatches"] == 0 and r["unsafe_specials_marked_safe"] == 0, r
+    assert r["safe"] > 2 * (1 << 22), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pnp_kernel_nan_frames(cuda, dtype):
+    """NaN pixels in two frames (``geometry_bench.PNP_NAN``): the kernel's
+    poses and costs have the plain version's NaN pattern (those frames',
+    both twins), and every other frame's are bit for bit the clean call's."""
+    from meatmodeler_tpu_torch.geometry import pnp_cuda
+    from meatmodeler_tpu_torch.tools.geometry_bench import PNP_NAN, PNP_NAN_FRAMES, pnp_plain, pnp_refine_case
+
+    args = pnp_refine_case(PNP_NAN, cuda, dtype)
+    got = pnp_cuda.pnp_refine(*args)
+    clean = pnp_cuda.pnp_refine(*pnp_refine_case("pnp", cuda, dtype))
+    ref = pnp_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.isnan(), r.isnan())
+    bad = list(PNP_NAN_FRAMES)
+    keep = [f for f in range(args[2].shape[0]) if f not in bad]
+    assert bool(got[0][:, bad].isnan().all()) and bool(got[1][:, bad].isnan().all())
+    assert torch.equal(got[0][:, keep], clean[0][:, keep]) and torch.equal(got[1][:, keep], clean[1][:, keep])
 
 
 @pytest.mark.gpu

@@ -13,7 +13,8 @@ the card dispatch taking neither ``jacfwd`` nor the forward-AD lock.
   the Taylor-free closed form loses five digits in either package).
 - ``pnp.refine_pose`` / ``solve_pnp_batch`` (plain:
   ``refine_pose_reference``, kernel ``csrc/pnp.cu``) against JAX, single
-  and batched, both twins: 1e-6 in float64, 1e-4 in float32.
+  and batched, both twins: 1e-6 in float64, 1e-4 in float32; and from
+  starts at the rotation's edges (rvec 0, 1e-7, 1e-3, near pi) in float64.
 - ``calibrate`` (plain LM: ``calibration.run_lm_reference``, kernel
   ``csrc/calib.cu``) against JAX with 0 and 5 distortion coefficients,
   one and two focals, a masked view, in float64: K and the rms within
@@ -54,8 +55,14 @@ from meatmodeler_tpu_torch.tools.geometry_bench import (
     jacobian_agreement,
     jacobians_agree,
     lm_args,
+    PNP_CASES,
+    PNP_EDGES,
+    PNP_NAN,
+    PNP_NAN_FRAMES,
+    PNP_WIDE,
     pnp_args,
     pnp_case,
+    pnp_refine_case,
     pnp_work,
 )
 from meatmodeler_tpu_torch.utils import numerics
@@ -102,6 +109,49 @@ def test_solve_pnp_batch_reference_matches_jax(dtype):
     batched = pnp.refine_pose(starts[1], torch.from_numpy(obj), torch.from_numpy(img), torch.from_numpy(k))
     single = pnp.refine_pose(starts[1, 1], torch.from_numpy(obj), torch.from_numpy(img[1]), torch.from_numpy(k))
     np.testing.assert_allclose(batched[1].numpy(), single.numpy(), atol=tol)
+
+
+@pytest.mark.parametrize("case", PNP_EDGES)
+def test_refine_pose_reference_matches_jax_at_the_rotation_edges(case):
+    """The plain refinement against JAX's ``refine_pose`` (float64, within
+    1e-6) from starts at rvec 0, 1e-7 (the Taylor branch), 1e-3 and near pi,
+    on the first four frames of each ``geometry_bench`` edge case."""
+    poses, obj, img, k, iters, damping = pnp_refine_case(case, "cpu", torch.float64)
+    starts, img = poses[0, :4], img[:4]
+    ref = jax.vmap(lambda p, x: jpnp.refine_pose(p, jnp.asarray(obj.numpy()), x, jnp.asarray(k.numpy())))(
+        jnp.asarray(starts.numpy()), jnp.asarray(img.numpy()))
+    got = pnp.refine_pose_reference(starts, obj, img, k, iters, damping)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
+
+
+def test_pnp_cases_cover_the_kernels_edges():
+    """``geometry_bench``'s PnP cases: the known path's call, a batch-row
+    clip's 11 frames, one start; 54 corners (past one warp's 32 lanes) on
+    128 frames; twin 0 of each edge case starting at rvec exactly 0, at
+    |rvec| ~1e-7 (theta^2 under the Taylor branch's 1e-12), ~1e-3 and
+    within 0.1 of pi, twin 1 at its planar twin; NaN pixels only in
+    ``PNP_NAN_FRAMES``."""
+    shapes = {"pnp": (2, 22, 12), "pnp_batch": (2, 11, 12), "pnp_single": (1, 1, 12), PNP_WIDE: (2, 128, 54)}
+    for name in (*PNP_CASES, PNP_WIDE, *PNP_EDGES, PNP_NAN):
+        poses, obj, img, k, iters, damping = pnp_refine_case(name)
+        t, f, n = shapes.get(name, (2, 22, 12))
+        assert tuple(poses.shape) == (t, f, 6) and tuple(obj.shape) == (n, 3) and tuple(img.shape) == (f, n, 2)
+        assert tuple(k.shape) == (3, 3) and (iters, damping) == (10, 1e-8)
+        assert bool(torch.isfinite(poses).all()) and (name == PNP_NAN or bool(torch.isfinite(img).all()))
+    assert pnp_refine_case(PNP_WIDE)[1].shape[0] > 32
+    theta = {name: pnp_refine_case(name, dtype=torch.float64)[0][0, :, :3].norm(dim=-1) for name in PNP_EDGES}
+    assert bool((theta["pnp_rvec0"] == 0).all())
+    assert bool((theta["pnp_rvec1e-7"] ** 2 < 1e-12).all()) and bool((theta["pnp_rvec1e-7"] > 0).all())
+    assert bool(((theta["pnp_rvec1e-3"] > 4e-4) & (theta["pnp_rvec1e-3"] < 2e-3)).all())
+    assert bool(((theta["pnp_near_pi"] > np.pi - 0.11) & (theta["pnp_near_pi"] < np.pi)).all())
+    for name in PNP_EDGES:
+        assert not torch.equal(pnp_refine_case(name)[0][1], pnp_refine_case(name)[0][0])
+    img = pnp_refine_case(PNP_NAN)[2]
+    nan_frames = torch.nonzero(img.isnan().flatten(1).any(1)).flatten().tolist()
+    assert nan_frames == sorted(PNP_NAN_FRAMES) and bool(img[PNP_NAN_FRAMES[0]].isnan().all())
+    assert int(img[PNP_NAN_FRAMES[1]].isnan().sum()) == 1
+    with pytest.raises(ValueError, match="unknown PnP case"):
+        pnp_refine_case("pnp_rvec1")
 
 
 @pytest.mark.parametrize(
@@ -305,6 +355,7 @@ def test_geometry_bench_compare_refuses_without_cuda(tmp_path, monkeypatch):
 
     monkeypatch.setattr(cuda_build, "compile_source", refuse)
     monkeypatch.setattr(geometry_bench, "known_path_calls", refuse)
+    monkeypatch.setattr(geometry_bench, "pnp_refine_case", refuse)
     assert geometry_bench.main(["--compare", str(tmp_path)]) == 2
     assert geometry_bench.main(["--compare", str(tmp_path), "--paths", "--ptxas", "--launches"]) == 2
     with pytest.raises(SystemExit) as exit_:

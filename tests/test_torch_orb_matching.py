@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from meatmodeler_tpu.io.synthetic import TurntableScene, render_sequence
@@ -134,3 +135,25 @@ def test_hamming_matrix_exact():
     b = rng.integers(0, 2, size=(20, 256), dtype=np.int8)
     ref = (a[:, None, :] != b[None, :, :]).sum(-1)
     np.testing.assert_array_equal(tmatch.hamming_matrix(tt(a), tt(b)).numpy(), ref)
+
+
+@pytest.mark.parametrize("block", [1, 2, 5])
+def test_match_descriptors_in_pair_blocks(monkeypatch, block):
+    """A stack of keyframe pairs matched in blocks of ``block`` pairs (the
+    distance budget ``_BLOCK_ENTRIES`` set to that many pairs' matrices)
+    gives exactly the all-at-once result, and that the JAX package's."""
+    rng = np.random.default_rng(4)
+    dq = rng.integers(0, 2, size=(5, 60, 256), dtype=np.int8)
+    dt = dq[:, rng.permutation(60)].copy()
+    dt[..., :4] ^= rng.integers(0, 2, size=(5, 60, 4), dtype=np.int8)
+    mq, mt = rng.random((5, 60)) < 0.9, rng.random((5, 60)) < 0.9
+    kw = dict(ratio=0.8, max_distance=96, max_matches=32, cross_check=True)
+    args = [tt(x) for x in (dq, dt, mq, mt)]
+    whole = tmatch.match_descriptors(*args, **kw)
+    monkeypatch.setattr(tmatch, "_BLOCK_ENTRIES", block * 60 * 60)
+    parts = tmatch.match_descriptors(*args, **kw)
+    for a, b in zip(whole, parts):
+        assert torch.equal(a, b)
+    assert int(whole.mask.sum()) > 20
+    ref = jax.vmap(lambda *a: jmatch.match_descriptors(*a, **kw))(*(jnp.asarray(x) for x in (dq, dt, mq, mt)))
+    _assert_same_matches(ref, parts)
