@@ -53,8 +53,24 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      1e-4 relative and poses within 1e-4 (float64, and float32 where it does
      not decide) at the known path's layout, with 5 distortion terms and a
      masked view, and at 128 and 384 such views (the last past the
-     kernel's shared-memory budget); NaN patterns equal everywhere; then
-     render the headline clip (300 frames, 1080p) on the card;
+     kernel's shared-memory budget); NaN patterns equal everywhere;
+  3e. hold the relative pose's hypothesis, cheirality and scoring kernels
+     (``csrc/relpose_hyp.cu``) against their plain versions in float32 and
+     float64 (``tools/relpose_bench.hyp_agreement``: essential matrices up
+     to sign and homographies within 1e-4, float64 1e-8, on the hypotheses
+     float32 rounding does not decide and whose sample has a unique null
+     vector; consensus counts exactly against the float64 count of the
+     kernel's own matrices wherever no slot lies within rounding of the
+     gate; the polish by what its H does to the inliers; poses after the
+     cheirality vote within 1e-4 where one decomposition has the most
+     votes (the votes printed); scores' good counts exact, truncated costs
+     within 1e-2 or twice the plain version's own float32 / float64 spread;
+     NaN patterns and infinities equal) at seeded calls of the paths'
+     shapes (1024 hypotheses at 128 points, 2048 at 8192 slots with ~421
+     in the mask, 2048 at 4096 with ~149) and at two edges (a NaN in a
+     slot out of the mask; zero-t candidates); each dispatch point must
+     give bit for bit what one launch of its wrapper gives; then render
+     the headline clip (300 frames, 1080p) on the card;
   4. run ``process`` on the clip with ``headline_config()`` and the
      renderer's board corners twice, with the launch counts reset just
      before; check the
@@ -100,14 +116,16 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      as in 3d at the first run's first pose-only refinement and first
      in-chain BA; each run's bootstrap launches
      ``refine_relpose`` exactly once (its essential and homography
-     candidates together), and the kernel is compared as in 3c at the
-     first run's call and timed there; then the automatic fallback, the
+     candidates together) and each relative-pose kernel of 3e once (the
+     homography's twice), and the kernels are compared as in 3c and 3e at
+     the first run's calls and timed there; then the automatic fallback, the
      same clip once through ``detector_config(headline_config())`` with no
      corners: the device hunt must give up (``board_probe_exhausted`` >=
      ``board_probe_frames``), the run come out marker-free and launch
-     ``refine_relpose`` once, the Jacobian kernel compared at its chain's
-     calls as before, the Lucas-Kanade kernel at its scan's first call
-     between two frames and the refinement at its bootstrap's call; last,
+     ``refine_relpose`` and 3e's kernels once (the homography's twice),
+     the Jacobian kernel compared at its chain's calls as before, the
+     Lucas-Kanade kernel at its scan's first call between two frames and
+     the relative pose's kernels at its bootstrap's calls; last,
      the CLAHE kernels at this path's
      keyframe input (n_kf, 360, 640), compared and timed;
   7. the multi-video batch, the JAX package's batch row: 8 clips of 60
@@ -132,16 +150,21 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      other; seconds and rmse of both are printed;
   9. odometry: ``chain_poses`` over the board-free clip of phase 6 with the
      scene's K (launch counts reset just before), one ``lk_track`` and one
-     ``refine_relpose`` launch per step: more than 50 points
+     ``refine_relpose`` launch per step, and one of each of 3e's kernels
+     (two of the homography's): more than 50 points
      tracked in every step and a chained-rotation error under 6 degrees
      over the first 10 steps (the JAX package's test bound); the drift over
      the clip is printed; its first 20 steps once more with the plain
-     refinement on the card, and each step's rotation difference against
-     the kernel run printed; then ``two_view.reconstruct_two_view`` on two of
-     its frames (launch counts reset just before): one ``lk_track`` and one
-     ``refine_relpose`` launch, at least 50 inliers, finite points; the
-     Lucas-Kanade and refinement kernels compared and timed at both paths'
-     own inputs (the odometry's first step, the two-view's matches); then
+     relative pose (refinement, hypotheses, vote, scores) on the card, and
+     each step's rotation difference against the kernel run printed; then
+     ``two_view.reconstruct_two_view`` on two of its frames (launch counts
+     reset just before): one ``lk_track``, one ``refine_relpose`` and one
+     of each of 3e's kernels (two of the homography's), at least 50
+     inliers, finite points; the Lucas-Kanade, refinement and 3e's kernels
+     compared and timed at both paths' own inputs (the odometry's first
+     step, the two-view's matches); the synchronizing operations (sync
+     debug mode) and kernel launches (profiler) of one warm
+     ``estimate_relative_pose`` at the odometry's first step printed; then
      the CLAHE kernels compared
      and timed at the odometry's input (one 720x1280 frame) and at a batch
      clip's keyframes (none of phase 9's paths runs a board geometry
@@ -184,11 +207,14 @@ memory rate; for Lucas-Kanade the larger of the bytes its windows read
 and its operations at the card's float32 rate, counted from the
 iterations this run's points ran and where they sampled
 (``tools/klt_bench``); for the refinement its operations on the points in
-the mask at the float32 rate (``tools/relpose_bench``). The last two
+the mask at the float32 rate, for the relative pose's other kernels
+their solves and consensus tests at the float32 rate
+(``tools/relpose_bench.hyp_work``). The last two
 lines are a JSON record of the kernels (launches summed over all paths;
 CLAHE's times, bound and share at the known path's keyframes,
-Lucas-Kanade's at the scan's input, the refinement's at the odometry's
-first step, the geometry kernels' at the known path's own calls: its first
+Lucas-Kanade's at the scan's input, the relative pose's kernels at the
+odometry's first step (the homography kernel's two launches summed), the
+geometry kernels' at the known path's own calls: its first
 calibration LM run, its pose stage's PnP, its global BA's first Jacobians,
 bounds from ``tools/geometry_bench``'s counts) and the device line.
 Per-stage attribution, device busy share and the e2e spread come from
@@ -205,6 +231,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -213,7 +240,9 @@ import torch
 
 from meatmodeler_tpu_torch import pipeline
 from meatmodeler_tpu_torch.config import SolverConfig
-from meatmodeler_tpu_torch.geometry import calibration, calibration_cuda, pnp, pnp_cuda, projection, ransac, ransac_cuda, so3
+from meatmodeler_tpu_torch.geometry import (
+    calibration, calibration_cuda, pnp, pnp_cuda, projection, ransac, ransac_cuda, ransac_hyp_cuda, so3,
+)
 from meatmodeler_tpu_torch.io import native_ops
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene
 from meatmodeler_tpu_torch.odometry import chain_poses
@@ -240,13 +269,22 @@ from meatmodeler_tpu_torch.tools.path_calls import lk_call_case, relpose_call_ca
 from meatmodeler_tpu_torch.tools.relpose_bench import (
     CALLERS as RELPOSE_CALLERS,
     EDGE_CASES as RELPOSE_EDGES,
+    HYP_CALLERS,
+    HYP_CALLS,
+    HYP_EDGES,
     PADDED_CASES as RELPOSE_PADDED,
     WIDE_CASE as RELPOSE_WIDE,
     caller_case,
+    describe_hyp,
     determined,
+    hyp_agreement,
+    hyp_agrees,
+    hyp_call_case,
+    hyp_case,
     relpose_agreement,
     relpose_agrees,
     relpose_case,
+    time_hyp,
     time_relpose,
     to_device,
 )
@@ -301,7 +339,15 @@ KERNELS = {
     "obs_jacobians": ("meatmodeler_tpu/solvers/bundle_adjust.py:94", "meatmodeler_tpu_torch/csrc/ba_jac.cu"),
     "pnp_refine": ("meatmodeler_tpu/geometry/pnp.py:108", "meatmodeler_tpu_torch/csrc/pnp.cu"),
     "calib_lm": ("meatmodeler_tpu/geometry/calibration.py:158", "meatmodeler_tpu_torch/csrc/calib.cu"),
+    # The rest of the jitted estimate_relative_pose (XLA, not pallas_calls):
+    # vmap(solve_one) and the Sampson counts; find_homography_ransac (and
+    # _decompose_homography, :600); recover_pose; the candidates' score.
+    "essential_hypotheses": ("meatmodeler_tpu/geometry/ransac.py:502", "meatmodeler_tpu_torch/csrc/relpose_hyp.cu"),
+    "homography_hypotheses": ("meatmodeler_tpu/geometry/ransac.py:665", "meatmodeler_tpu_torch/csrc/relpose_hyp.cu"),
+    "recover_pose": ("meatmodeler_tpu/geometry/ransac.py:329", "meatmodeler_tpu_torch/csrc/relpose_hyp.cu"),
+    "score_candidates": ("meatmodeler_tpu/geometry/ransac.py:544", "meatmodeler_tpu_torch/csrc/relpose_hyp.cu"),
 }
+HYP = ("essential_hypotheses", "homography_hypotheses", "recover_pose", "score_candidates")
 GEOMETRY = ("obs_jacobians", "pnp_refine", "calib_lm")
 # What each geometry kernel's launches are counted against: the calls of
 # these functions in the same window.
@@ -324,7 +370,7 @@ RELPOSE_TOL = 1e-4  # on the candidates float32 rounding does not decide
 ODOMETRY_PLAIN_STEPS = 20
 
 
-LIBRARIES = (clahe_cuda, klt_cuda, ransac_cuda, bundle_adjust_cuda, pnp_cuda, calibration_cuda)
+LIBRARIES = (clahe_cuda, klt_cuda, ransac_cuda, ransac_hyp_cuda, bundle_adjust_cuda, pnp_cuda, calibration_cuda)
 
 
 def reset_counts() -> None:
@@ -457,14 +503,116 @@ def plain_lk():
 
 @contextlib.contextmanager
 def plain_relpose():
-    """The relative-pose refinement through its plain version on the card,
-    for comparison."""
-    real = ransac.refine_relative_pose
-    ransac.refine_relative_pose = ransac.refine_relative_pose_reference
+    """``estimate_relative_pose``'s dispatch points (the refinement, the
+    hypotheses, the cheirality vote and the scores) on their plain versions
+    on the card, for comparison."""
+    names = ("refine_relative_pose", *HYP_CALLS)
+    real = {name: getattr(ransac, name) for name in names}
+    for name in names:
+        setattr(ransac, name, getattr(ransac, f"{name}_reference"))
     try:
         yield
     finally:
-        ransac.refine_relative_pose = real
+        for name, fn in real.items():
+            setattr(ransac, name, fn)
+
+
+@contextlib.contextmanager
+def first_hyp_calls():
+    """Within the block, the first call of each of ``HYP_CALLS``' dispatch
+    points (from any thread), as {name: its plain version's positional
+    arguments}."""
+    first, real = {}, {name: getattr(ransac, name) for name in HYP_CALLS}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            if name not in first:
+                first[name] = hyp_call_case(name, (args, kwargs))
+            return fn(*args, **kwargs)
+
+        return call
+
+    for name, fn in real.items():
+        setattr(ransac, name, wrap(name, fn))
+    try:
+        yield first
+    finally:
+        for name, fn in real.items():
+            setattr(ransac, name, fn)
+
+
+def check_hyp_launches(label, launches, estimates: int) -> None:
+    """Each of the hypothesis, cheirality and scoring kernels once per
+    ``estimate_relative_pose`` (the homography kernel twice: hypotheses,
+    then polish and decomposition)."""
+    want = {name: estimates * (2 if name == "homography_hypotheses" else 1) for name in HYP}
+    got = {name: launches[name] for name in HYP}
+    print(f"[{label}] relative-pose kernel launches {got} for {estimates} estimate_relative_pose")
+    if got != want:
+        raise AssertionError(f"the relative-pose kernels did not launch as the design gives on the {label} path: "
+                             f"{got}, expected {want}")
+
+
+def compare_hyp(cases, err, seeded: bool = False):
+    """The hypothesis, cheirality and scoring kernels against their plain
+    versions at each (label, {dispatch point: arguments on the card}):
+    ``ransac.<name>`` must give bit for bit what one launch of the wrapper
+    gives, and that must agree with the plain version, float32 and float64
+    (``tools/relpose_bench.hyp_agreement``; ``seeded`` cases must hold at
+    least one item of each kind); raises on disagreement, folds the largest
+    held difference into ``err``."""
+    for label, calls in cases:
+        for name, args in calls.items():
+            kernel = HYP_CALLS[name]
+            got = getattr(ransac, name)(*args)
+            once = getattr(ransac_hyp_cuda, name)(*args)
+            a = hyp_agreement(name, args)
+            torch.cuda.synchronize()
+            print(f"kernel check {kernel} ({name}) {label}: {json.dumps(a)}")
+            for x, y in zip(got, once):
+                if x is not None:
+                    torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True,
+                                               msg=f"ransac.{name} and one {kernel} launch differ at {label}")
+            if not hyp_agrees(name, a, need_held=seeded):
+                raise AssertionError(f"{kernel} ({name}) disagrees with its plain version at {label}")
+            worst = a.get("max_held", 0.0) if name != "homography_polish" else a["decompositions"] if a["held"] else 0.0
+            err[kernel] = max(err[kernel], worst)
+
+
+def time_hyp_at(label, calls, timings):
+    """Times of the four kernels (the homography's two modes apart) at a
+    path's calls, kept in ``timings[label]``."""
+    rows = timings[label] = {name: time_hyp(name, args) for name, args in calls.items()}
+    for name, r in rows.items():
+        print("time " + describe_hyp(label, name, r))
+
+
+def count_estimate_syncs(call):
+    """One warm ``estimate_relative_pose`` at a recorded call's arguments:
+    the synchronizing CUDA operations torch's sync debug mode reports
+    (which misses some), and the kernels the profiler sees launched."""
+    args, kwargs = call
+    kwargs = dict(kwargs, generator=torch.Generator(device="cuda").manual_seed(0))
+    ransac.estimate_relative_pose(*args, **kwargs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ransac.estimate_relative_pose(*args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ransac.estimate_relative_pose(*args, **kwargs)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[odometry] one warm estimate_relative_pose at step 1's call: {len(syncs)} synchronizing operations "
+          f"(sync debug mode) {syncs[:5]}; {launches} kernel launch calls and {kernels} device activities (profiler)")
+    return len(syncs), launches
 
 
 def _gpu_line() -> str:
@@ -880,6 +1028,7 @@ def run_markerless(scene, frames, poses, err):
         raise AssertionError(f"a kernel of the markerless path never launched: {launches}")
     if launches["refine_relpose"] != 2:
         raise AssertionError(f"the bootstrap did not launch refine_relpose once a run: {launches}")
+    check_hyp_launches("markerless", launches, 2)
     check_geometry("markerless", launches, calls, board=False)
     compare_first_jacobians("markerless", CHAIN_BA, ba_first, err)
     return launches, c
@@ -940,6 +1089,7 @@ def run_fallback(frames):
         raise AssertionError("fallback rmse is not finite")
     if ransac_cuda.LAUNCHES["refine_relpose"] != 1:
         raise AssertionError(f"the fallback's bootstrap did not launch refine_relpose once: {counts()}")
+    check_hyp_launches("fallback", counts(), 1)
 
 
 def check_clip(res, scene):
@@ -1059,6 +1209,7 @@ def run_odometry(scene, frames, poses):
         raise AssertionError(f"lk_track did not launch once per odometry step: {launches}")
     if launches["refine_relpose"] != len(frames) - 1:
         raise AssertionError(f"refine_relpose did not launch once per odometry step: {launches}")
+    check_hyp_launches("odometry", launches, len(frames) - 1)
     return launches, res
 
 
@@ -1067,14 +1218,14 @@ def odometry_plain(scene, frames, res):
     refinement on the card; prints each step's rotation difference (deg)
     against the kernel run. The draws are the same (one seeded generator
     per run), so only the refinement's rounding differs."""
-    before = ransac_cuda.LAUNCHES["refine_relpose"]
+    before = (ransac_cuda.LAUNCHES["refine_relpose"], dict(ransac_hyp_cuda.LAUNCHES))
     t0 = time.perf_counter()
     with plain_relpose():
         plain = chain_poses(frames[: ODOMETRY_PLAIN_STEPS + 1], scene.intrinsics, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if ransac_cuda.LAUNCHES["refine_relpose"] != before:
-        raise AssertionError("the plain run launched refine_relpose")
+    if (ransac_cuda.LAUNCHES["refine_relpose"], ransac_hyp_cuda.LAUNCHES) != before:
+        raise AssertionError("the plain run launched a relative-pose kernel")
 
     def rot(poses):
         return so3.exp(torch.from_numpy(np.asarray(poses, np.float64)[:, :3]))
@@ -1082,7 +1233,7 @@ def odometry_plain(scene, frames, res):
     r_k, r_p = rot(res.poses[: ODOMETRY_PLAIN_STEPS + 1]), rot(plain.poses)
     cos = (torch.einsum("tij,tij->t", r_k, r_p) - 1.0) / 2.0
     diff = torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0, 1.0)))[1:]
-    print(f"[odometry] first {ODOMETRY_PLAIN_STEPS} steps with the plain refinement on the card: {wall:.3f} s; "
+    print(f"[odometry] first {ODOMETRY_PLAIN_STEPS} steps with the plain relative pose on the card: {wall:.3f} s; "
           f"rotation difference against the kernel run per step (deg) {[round(float(d), 6) for d in diff]}, max "
           f"{float(diff.max()):.6f}; inliers per step kernel {res.num_inliers[1:ODOMETRY_PLAIN_STEPS + 1].tolist()} "
           f"plain {plain.num_inliers[1:].tolist()}")
@@ -1106,6 +1257,7 @@ def run_two_view(scene, frames):
         raise AssertionError(f"lk_track did not launch once in reconstruct_two_view: {launches}")
     if launches["refine_relpose"] != 1:
         raise AssertionError(f"refine_relpose did not launch once in reconstruct_two_view: {launches}")
+    check_hyp_launches("two-view", launches, 1)
     return launches
 
 
@@ -1314,6 +1466,10 @@ def main() -> int:
                     err)
     # Phase 3d: the board geometry's kernels against their plain versions.
     compare_geometry_seeded(dev, err)
+    # Phase 3e: the relative pose's hypothesis, cheirality and scoring
+    # kernels against their plain versions at the paths' shapes and edges.
+    compare_hyp([(label, hyp_case(label, device=dev)) for label in (*(c[0] for c in HYP_CALLERS), *HYP_EDGES)], err,
+                seeded=True)
 
     t0 = time.perf_counter()
     scene, frames, corners = headline_clip(dev)
@@ -1321,7 +1477,7 @@ def main() -> int:
     print(f"rendered {frames.shape} in {time.perf_counter() - t0:.2f} s")
     OUT.mkdir(parents=True, exist_ok=True)
     config = headline_config()
-    timings, lk_timings, relpose_timings, geometry_timings = {}, {}, {}, {}
+    timings, lk_timings, relpose_timings, geometry_timings, hyp_timings = {}, {}, {}, {}, {}
 
     # Phase 4: known corners, host pass 1, grey enhance; its BA problem and
     # keyframe descriptors are recorded for phase 10.
@@ -1369,7 +1525,7 @@ def main() -> int:
     t0 = time.perf_counter()
     mscene, mframes, mposes = markerless_clip(dev)
     print(f"rendered {mframes.shape} in {time.perf_counter() - t0:.2f} s")
-    with recording(ransac, "refine_relative_pose") as calls:
+    with recording(ransac, "refine_relative_pose") as calls, first_hyp_calls() as hyp_first:
         launches_m, c = run_markerless(mscene, mframes, mposes, err)
     add_counts(launches, launches_m)
     # The first run's bootstrap: its essential and homography candidates in one call.
@@ -1377,7 +1533,9 @@ def main() -> int:
     del calls
     compare_relpose([("bootstrap", bootstrap)], err)
     time_relpose_at("bootstrap", bootstrap, relpose_timings)
-    del bootstrap
+    compare_hyp([("bootstrap", hyp_first)], err)
+    time_hyp_at("bootstrap", hyp_first, hyp_timings)
+    del bootstrap, hyp_first
     mconfig = markerless_config()
     p2s = mconfig.pass2_downscale
     kf_grey = np.ascontiguousarray(mframes[c["keyframe_indices"]])
@@ -1386,14 +1544,16 @@ def main() -> int:
     time_at("marker-free keyframes", kf_grey, timings)
     reset_counts()
     with first_calls_within(OBS_JACOBIANS, *CHAIN_BA) as ba_first, geometry_counts() as geometry_calls, \
-            recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines:
+            recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines, \
+            first_hyp_calls() as hyp_first:
         run_fallback(mframes)
     launches_f = counts()
-    # Its scan's first call between two frames, and its bootstrap's refinement.
+    # Its scan's first call between two frames, and its bootstrap's relative pose.
     fallback_lk = next(case for case in map(lk_call_case, calls) if not torch.equal(case[0][0], case[1][0]))
     compare_lk([("fallback scan input", fallback_lk)], err)
     compare_relpose([("fallback bootstrap", relpose_call_case(refines[0]))], err)
-    del calls, refines, fallback_lk
+    compare_hyp([("fallback bootstrap", hyp_first)], err)
+    del calls, refines, fallback_lk, hyp_first
     check_geometry("fallback", launches_f, geometry_calls, board=False)
     if min(launches_f[k] for k in KERNELS if k not in ("pnp_refine", "calib_lm")) <= 0:
         raise AssertionError(f"a kernel of the fallback path never launched: {launches_f}")
@@ -1424,21 +1584,28 @@ def main() -> int:
 
     # Phase 9: odometry over the board-free clip, two-view, the kernels, the CLI.
     with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines, \
-            geometry_counts() as geometry_calls:
+            geometry_counts() as geometry_calls, first_hyp_calls() as odometry_hyp, \
+            recording(ransac, "estimate_relative_pose") as estimates:
         launches_o, odo = run_odometry(mscene, mframes, mposes)
     check_geometry("odometry", launches_o, geometry_calls, board=False, chain=False)
     add_counts(launches, launches_o)
     odometry_lk, odometry_refine = lk_call_case(calls[0]), relpose_call_case(refines[0])
-    del refines
+    odometry_estimate = estimates[0]
+    del refines, estimates
     odometry_plain(mscene, mframes, odo)
     with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines, \
-            geometry_counts() as geometry_calls:
+            geometry_counts() as geometry_calls, first_hyp_calls() as two_view_hyp:
         launches_t = run_two_view(mscene, mframes)
     check_geometry("two-view", launches_t, geometry_calls, board=False, chain=False)
     add_counts(launches, launches_t)
     lk_cases = [("odometry step 1", odometry_lk), ("two-view matches", lk_call_case(calls[0]))]
     two_view_refine = relpose_call_case(refines[0])
     del calls, refines
+    compare_hyp([("odometry step 1", odometry_hyp), ("two-view", two_view_hyp)], err)
+    time_hyp_at("odometry step 1", odometry_hyp, hyp_timings)
+    time_hyp_at("two-view", two_view_hyp, hyp_timings)
+    count_estimate_syncs(odometry_estimate)
+    del odometry_hyp, two_view_hyp, odometry_estimate
     compare_lk(lk_cases, err)
     for label, case in lk_cases:
         time_lk_at(label, case, lk_timings)
@@ -1474,6 +1641,15 @@ def main() -> int:
     rows["pnp_refine"] = dict(geo["pnp_refine"], at=[geo["pnp_refine"][k] for k in ("twins", "frames", "points")])
     rows["calib_lm"] = dict(geo["calib_lm"], at=[geo["calib_lm"][k] for k in ("views", "points", "n_intr",
                                                                               "iterations")])
+    # The relative pose's kernels at the odometry's first step; the
+    # homography kernel's two launches (hypotheses, then polish) summed.
+    hyp = hyp_timings["odometry step 1"]
+    for name in ("essential_hypotheses", "recover_pose", "score_candidates"):
+        rows[name] = dict(hyp[name], at=[hyp[name]["items"], hyp[name]["points"]])
+    both = (hyp["homography_hypotheses"], hyp["homography_polish"])
+    rows["homography_hypotheses"] = {key: sum(r[key] for r in both) for key in ("ms", "plain_ms", "bound_ms")}
+    rows["homography_hypotheses"].update(bound_by=both[0]["bound_by"], at=[both[0]["items"], both[0]["points"]],
+                                         share=rows["homography_hypotheses"]["bound_ms"] / rows["homography_hypotheses"]["ms"])
     record = {
         "kernels": [
             {
@@ -1490,7 +1666,9 @@ def main() -> int:
                 "share": rows[name]["share"],
                 # No single PyTorch call computes a tile-LUT CLAHE, pyramidal
                 # LK, a robust LM refinement, projection Jacobians, a
-                # Gauss-Newton PnP or an LM calibration.
+                # Gauss-Newton PnP, an LM calibration, batched 8-point or
+                # 4-point RANSAC hypotheses with their consensus, a
+                # cheirality vote or a triangulated-reprojection score.
                 "library_ms": None,
                 "at": rows[name]["at"],
             }

@@ -52,5 +52,7 @@ def find_homography(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     ata = design.transpose(-1, -2) @ design
     _, vecs = torch.linalg.eigh(ata)
     h_n = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
-    h = torch.linalg.solve(t_dst, h_n @ t_src)
+    # solve_ex: the same solution, without reading its info flag back to the
+    # host as torch.linalg.solve does on the card.
+    h = torch.linalg.solve_ex(t_dst, h_n @ t_src)[0]
     return h / h[..., 2:3, 2:3]

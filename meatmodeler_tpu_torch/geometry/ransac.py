@@ -2,15 +2,21 @@
 ``meatmodeler_tpu/geometry/ransac.py``).
 
 Same algorithms as the reference: thousands of 8-point (or 4-point
-homography) hypotheses solved at once as batched eigen/SVD problems, all
-scored against all matches in one batched pass, the best picked by
-``argmax``; the LO-RANSAC relative pose decomposes its top candidates and
-the homography's 8 decompositions, refines them as one batch and re-scores
-them.
-On the card that refinement (:func:`refine_relative_pose`) is one launch of
-a hand-written CUDA kernel (``ransac_cuda``, ``csrc/relpose.cu``); on the CPU
-it is the plain version, :func:`refine_relative_pose_reference`. Nothing
-here reads a value back to the host.
+homography) hypotheses solved at once, all scored against all matches, the
+best picked by ``argmax``; the LO-RANSAC relative pose decomposes its top
+candidates and the homography's 8 decompositions, refines them as one batch
+and re-scores them.
+
+On the card ``estimate_relative_pose`` runs as hand-written CUDA kernels
+with no host read: the essential hypotheses and their consensus counts
+(:func:`essential_hypotheses`), the homography's hypotheses and its polish
+and decomposition (:func:`homography_hypotheses`,
+:func:`homography_polish`), the cheirality vote (:func:`recover_pose`) and
+the candidates' scores (:func:`score_candidates`) launch ``ransac_hyp_cuda``
+(``csrc/relpose_hyp.cu``), the refinement (:func:`refine_relative_pose`)
+``ransac_cuda`` (``csrc/relpose.cu``). On the CPU each is its plain version,
+the function of the same name with ``_reference`` appended. The draws, the
+top-k sort and the final ordered argmax are torch operations on either.
 
 Every hypothesis draw goes through :func:`sample_subsets`, which draws
 uniformly among the valid entries, with replacement, from an explicit
@@ -19,8 +25,10 @@ uniformly among the valid entries, with replacement, from an explicit
 cannot be reproduced in torch), so tests hand both packages the same
 hypotheses by replacing this one function.
 
-Batched ``torch.linalg`` calls on CUDA synchronize with the host to check
-their results; that is PyTorch's doing, not a readback of this module.
+``find_fundamental``, ``find_essential`` and the plain versions use batched
+``torch.linalg`` eigen and SVD solves, which on CUDA synchronize with the
+host to check their results (PyTorch's doing, not a readback of this
+module).
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.func import jacfwd, vmap
 
-from meatmodeler_tpu_torch.geometry import ransac_cuda, so3
+from meatmodeler_tpu_torch.geometry import ransac_cuda, ransac_hyp_cuda, so3
 from meatmodeler_tpu_torch.geometry.homography import find_homography
 from meatmodeler_tpu_torch.utils.numerics import nanmedian, one_thread_at_a_time
 
@@ -41,10 +49,19 @@ __all__ = [
     "find_fundamental",
     "find_essential",
     "recover_pose",
+    "recover_pose_reference",
     "refine_relative_pose",
     "refine_relative_pose_reference",
     "estimate_relative_pose",
+    "essential_hypotheses",
+    "essential_hypotheses_reference",
     "find_homography_ransac",
+    "homography_hypotheses",
+    "homography_hypotheses_reference",
+    "homography_polish",
+    "homography_polish_reference",
+    "score_candidates",
+    "score_candidates_reference",
 ]
 
 
@@ -301,11 +318,35 @@ def recover_pose(
     pts2: torch.Tensor,
     mask: torch.Tensor,
     intrinsics: torch.Tensor,
+    thr2: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`recover_pose_reference` in one launch of the CUDA kernel
+    (``csrc/relpose_hyp.cu``) for tensors on the card, the plain version for
+    tensors on the CPU. Arguments and results as the plain version's."""
+    if essential.device.type == "cuda":
+        batch, n = essential.shape[:-2], pts1.shape[0]
+        m = mask if mask.ndim == 1 else mask.expand(batch + (n,)).reshape(-1, n)
+        rv, tv, votes = ransac_hyp_cuda.recover_pose(essential.reshape(-1, 3, 3), pts1, pts2, m, intrinsics, thr2)
+        return rv.reshape(batch + (3,)), tv.reshape(batch + (3,)), votes.reshape(batch + (4,))
+    return recover_pose_reference(essential, pts1, pts2, mask, intrinsics, thr2)
+
+
+def recover_pose_reference(
+    essential: torch.Tensor,
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    intrinsics: torch.Tensor,
+    thr2: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Disambiguate E into (R, t) by cheirality voting (cv2.recoverPose),
     batched over the leading dims of ``essential`` (..., 3, 3) and ``mask``
-    (..., N). Returns (rvec (..., 3), unit t (..., 3), votes (..., 4))."""
+    (..., N). With ``thr2`` only the slots whose Sampson distance under E
+    (in ray units) is below it vote. Returns (rvec (..., 3), unit t (..., 3),
+    votes (..., 4))."""
     n1, n2 = _rays(pts1, intrinsics), _rays(pts2, intrinsics)
+    if thr2 is not None:
+        mask = mask & (_sampson(essential, _homog(n1), _homog(n2)) < thr2)
     u, _, vt = _svd(essential)
     sign = torch.where(torch.linalg.det(u) * torch.linalg.det(vt) < 0, -1.0, 1.0).to(essential.dtype)
     w = torch.tensor(_W, dtype=essential.dtype, device=essential.device)
@@ -411,6 +452,93 @@ def refine_relative_pose_reference(
     return params[..., :3], params[..., 3:]
 
 
+def essential_hypotheses(
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    intrinsics: torch.Tensor,
+    idx: torch.Tensor,
+    thr2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`essential_hypotheses_reference` in one launch of the CUDA
+    kernel for tensors on the card, the plain version on the CPU."""
+    if pts1.device.type == "cuda":
+        return ransac_hyp_cuda.essential_hypotheses(pts1, pts2, mask, intrinsics, idx, thr2)
+    return essential_hypotheses_reference(pts1, pts2, mask, intrinsics, idx, thr2)
+
+
+def essential_hypotheses_reference(
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    intrinsics: torch.Tensor,
+    idx: torch.Tensor,
+    thr2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The normalized 8-point hypotheses of the (H, 8) slot indices ``idx``,
+    each projected onto the essential manifold with unit norm, and their
+    consensus: the slots in ``mask`` whose Sampson distance (ray units) is
+    below the 0-d ``thr2``. Returns (es (H, 3, 3), int64 counts (H,))."""
+    n1, n2 = _rays(pts1, intrinsics), _rays(pts2, intrinsics)
+    n1h, t1 = _normalize(n1, mask)
+    n2h, t2 = _normalize(n2, mask)
+    es = _project_to_essential(t2.T @ _eight_point(n1h[idx], n2h[idx]) @ t1)
+    counts = torch.sum((_sampson(es, _homog(n1), _homog(n2)) < thr2) & mask, dim=1)
+    return es, counts
+
+
+def score_candidates(
+    rvecs: torch.Tensor,
+    tvecs: torch.Tensor,
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    intrinsics: torch.Tensor,
+    thr2: torch.Tensor,
+):
+    """:func:`score_candidates_reference` in one launch of the CUDA kernel
+    for tensors on the card, the plain version on the CPU."""
+    if rvecs.device.type == "cuda":
+        return ransac_hyp_cuda.score_candidates(rvecs, tvecs, pts1, pts2, mask, intrinsics, thr2)
+    return score_candidates_reference(rvecs, tvecs, pts1, pts2, mask, intrinsics, thr2)
+
+
+def score_candidates_reference(
+    rvecs: torch.Tensor,
+    tvecs: torch.Tensor,
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    intrinsics: torch.Tensor,
+    thr2: torch.Tensor,
+):
+    """CheckRT-style scores of (C, 3) refined candidates: each one's
+    E = [t]_x R (unit norm), its Sampson inliers, the pose its cheirality
+    vote picks among E's decompositions, and that pose's triangulated
+    reprojection: the slots in front of both cameras within 2x the epipolar
+    gate, and the truncated reprojection cost over the mask. Returns (int64
+    good counts (C,), costs (C,), rvecs (C, 3), unit tvecs (C, 3), E (C, 3,
+    3), Sampson residuals (C, N) with inf out of the mask, inliers (C, N))."""
+    n1, n2 = _rays(pts1, intrinsics), _rays(pts2, intrinsics)
+    e = _essential_of(rvecs, tvecs)
+    e = e / torch.clamp(torch.linalg.norm(e, dim=(-2, -1), keepdim=True), min=1e-12)
+    ress = _sampson(e, _homog(n1), _homog(n2))  # (C, N)
+    inls = (ress < thr2) & mask
+    rvds, tvds, _ = recover_pose_reference(e, pts1, pts2, inls, intrinsics)
+    rd = so3.exp(rvds)
+    x3, z1, z2 = _triangulate_midpoint(rd, tvds, n1, n2)
+    xc2 = torch.einsum("cij,cnj->cni", rd, x3) + tvds[:, None, :]
+    safe1 = torch.where(torch.abs(z1) > 1e-9, z1, torch.full_like(z1, 1e-9))
+    safe2 = torch.where(torch.abs(z2) > 1e-9, z2, torch.full_like(z2, 1e-9))
+    r1 = torch.sum((x3[..., :2] / safe1[..., None] - n1) ** 2, dim=-1)
+    r2 = torch.sum((xc2[..., :2] / safe2[..., None] - n2) ** 2, dim=-1)
+    rmax = torch.maximum(r1, r2)
+    rthr2 = 4.0 * thr2  # reprojection gate: 2x the epipolar gate, squared
+    good = torch.sum(mask & (z1 > 1e-6) & (z2 > 1e-6) & (rmax < rthr2), dim=-1)
+    msacs = torch.sum(torch.where(mask, torch.minimum(rmax, rthr2), torch.zeros_like(rmax)), dim=-1)
+    return good, msacs, rvds, tvds, e, torch.where(mask, ress, torch.full_like(ress, torch.inf)), inls
+
+
 def estimate_relative_pose(
     pts1: torch.Tensor,
     pts2: torch.Tensor,
@@ -426,27 +554,20 @@ def estimate_relative_pose(
     escape hatch) are each cheirality-decomposed and refined as one batch,
     then scored by triangulated reprojection (most inliers, truncated cost
     as tie-break). Returns (rvec, unit tvec, RansacResult under the winning
-    pose)."""
+    pose). On the card: five launches of ``csrc/relpose_hyp.cu``'s kernels
+    and one of ``csrc/relpose.cu``'s, and no host read."""
     generator = generator or default_generator(pts1.device)
-    n1, n2 = _rays(pts1, intrinsics), _rays(pts2, intrinsics)
     thr2 = (threshold / (0.5 * (intrinsics[0, 0] + intrinsics[1, 1]))) ** 2
 
     idx = sample_subsets(mask, num_hypotheses, 8, generator)
-    n1h, t1 = _normalize(n1, mask)
-    n2h, t2 = _normalize(n2, mask)
-    es = _project_to_essential(t2.T @ _eight_point(n1h[idx], n2h[idx]) @ t1)
-    x1, x2 = _homog(n1), _homog(n2)
-    counts = torch.sum((_sampson(es, x1, x2) < thr2) & mask, dim=1)
+    es, counts = essential_hypotheses(pts1, pts2, mask, intrinsics, idx, thr2)
     # lax.top_k order: most consensus first, lower index first on ties.
     top_idx = torch.sort(counts, descending=True, stable=True).indices[:top_k]
-
-    es_top = es[top_idx]
-    inl_top = (_sampson(es_top, x1, x2) < thr2) & mask
-    rvs, tvs, _ = recover_pose(es_top, pts1, pts2, inl_top, intrinsics)
+    # Each top hypothesis decomposed, voted by its own inliers.
+    rvs, tvs, _ = recover_pose(es[top_idx], pts1, pts2, mask, intrinsics, thr2)
 
     # Planar-degeneracy escape hatch (ORB-SLAM's dual H/F bootstrap).
-    h_res = find_homography_ransac(pts1, pts2, mask, generator, threshold=3.0)
-    rv_h, tv_h = _decompose_homography(h_res.matrix, intrinsics)
+    _, rv_h, tv_h = _homography_candidates(pts1, pts2, mask, generator, threshold=3.0, intrinsics=intrinsics)
     # Both families refined in one call (one launch on the card): each
     # candidate is refined on its own, and the refinement draws nothing, so
     # the draws keep their order.
@@ -457,31 +578,16 @@ def estimate_relative_pose(
 
     # Score every candidate by triangulated reprojection (CheckRT-style):
     # the Sampson cost is blind to planar-degenerate impostors.
-    e = _essential_of(rvs, tvs)
-    e = e / torch.clamp(torch.linalg.norm(e, dim=(-2, -1), keepdim=True), min=1e-12)
-    ress = _sampson(e, x1, x2)  # (C, N)
-    inls = (ress < thr2) & mask
-    rvds, tvds, _ = recover_pose(e, pts1, pts2, inls, intrinsics)
-    rd = so3.exp(rvds)
-    x3, z1, z2 = _triangulate_midpoint(rd, tvds, n1, n2)
-    xc2 = torch.einsum("cij,cnj->cni", rd, x3) + tvds[:, None, :]
-    safe1 = torch.where(torch.abs(z1) > 1e-9, z1, torch.full_like(z1, 1e-9))
-    safe2 = torch.where(torch.abs(z2) > 1e-9, z2, torch.full_like(z2, 1e-9))
-    r1 = torch.sum((x3[..., :2] / safe1[..., None] - n1) ** 2, dim=-1)
-    r2 = torch.sum((xc2[..., :2] / safe2[..., None] - n2) ** 2, dim=-1)
-    rmax = torch.maximum(r1, r2)
-    rthr2 = 4.0 * thr2  # reprojection gate: 2x the epipolar gate, squared
-    good = mask & (z1 > 1e-6) & (z2 > 1e-6) & (rmax < rthr2)
-    msacs = torch.sum(torch.where(mask, torch.minimum(rmax, rthr2), torch.zeros_like(rmax)), dim=-1)
-    order = good.sum(-1).to(torch.float32) - msacs / (torch.max(msacs) + 1e-30)
-    best = torch.argmax(order)
-    result = RansacResult(
-        matrix=e[best],
-        inliers=inls[best],
-        num_inliers=inls[best].sum(),
-        residuals=torch.where(mask, ress[best], torch.full_like(ress[best], torch.inf)),
-    )
-    return rvds[best], tvds[best], result
+    good, msacs, rvds, tvds, e, ress, inls = score_candidates(rvs, tvs, pts1, pts2, mask, intrinsics, thr2)
+    order = good.to(torch.float32) - msacs / (torch.max(msacs) + 1e-30)
+    best = torch.argmax(order).reshape(1)
+
+    def pick(x):  # x[best] by index_select: a 0-d tensor index would read it back to the host
+        return x.index_select(0, best)[0]
+
+    inliers = pick(inls)
+    result = RansacResult(matrix=pick(e), inliers=inliers, num_inliers=inliers.sum(), residuals=pick(ress))
+    return pick(rvds), pick(tvds), result
 
 
 def _decompose_homography(h: torch.Tensor, intrinsics: torch.Tensor):
@@ -535,22 +641,60 @@ def _homography_transfer_sq(h: torch.Tensor, pts1: torch.Tensor, pts2: torch.Ten
     return torch.sum((fwd - pts2) ** 2, -1) + torch.sum((bwd - pts1) ** 2, -1)
 
 
-def find_homography_ransac(
+def homography_hypotheses(
+    pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor, threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`homography_hypotheses_reference` in one launch of the CUDA
+    kernel for tensors on the card, the plain version on the CPU."""
+    if pts1.device.type == "cuda":
+        return ransac_hyp_cuda.homography_hypotheses(pts1, pts2, mask, idx, threshold)
+    return homography_hypotheses_reference(pts1, pts2, mask, idx, threshold)
+
+
+def homography_hypotheses_reference(
+    pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor, threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The normalized 4-point DLT homographies of the (H, 4) slot indices
+    ``idx`` (pts1 -> pts2) and their consensus: the slots in ``mask`` whose
+    symmetric transfer error is below ``threshold`` px. Returns (hs (H, 3,
+    3), int64 counts (H,))."""
+    hs = find_homography(pts1[idx], pts2[idx])  # (H, 3, 3)
+    counts = torch.sum((_homography_transfer_sq(hs, pts1, pts2) < threshold * threshold) & mask, dim=1)
+    return hs, counts
+
+
+def homography_polish(
     pts1: torch.Tensor,
     pts2: torch.Tensor,
     mask: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
-    threshold: float = 3.0,
-    num_hypotheses: int = 1024,
-) -> RansacResult:
-    """Batched-RANSAC planar homography (4-point DLT hypotheses), polished by
-    an inlier-weighted DLT re-solve; ``residuals`` are symmetric transfer
-    errors (squared px)."""
-    generator = generator or default_generator(pts1.device)
+    hs: torch.Tensor,
+    counts: torch.Tensor,
+    threshold: float,
+    intrinsics: Optional[torch.Tensor] = None,
+):
+    """:func:`homography_polish_reference` in one launch of the CUDA kernel
+    for tensors on the card, the plain version on the CPU."""
+    if pts1.device.type == "cuda":
+        return ransac_hyp_cuda.homography_polish(pts1, pts2, mask, hs, counts, threshold, intrinsics)
+    return homography_polish_reference(pts1, pts2, mask, hs, counts, threshold, intrinsics)
+
+
+def homography_polish_reference(
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    hs: torch.Tensor,
+    counts: torch.Tensor,
+    threshold: float,
+    intrinsics: Optional[torch.Tensor] = None,
+):
+    """The first best of ``hs`` by ``counts``, polished twice by an
+    inlier-weighted DLT re-solve (kept while consensus does not shrink),
+    and with ``intrinsics`` its 8 Faugeras decompositions. Returns (H (3,
+    3), symmetric transfer errors (N,) with inf out of the mask, inliers
+    (N,), rvecs (8, 3), unit tvecs (8, 3)); without ``intrinsics`` the last
+    two are None."""
     thr2 = threshold * threshold
-    idx = sample_subsets(mask, num_hypotheses, 4, generator)
-    hs = find_homography(pts1[idx], pts2[idx])  # (H, 3, 3)
-    counts = torch.sum((_homography_transfer_sq(hs, pts1, pts2) < thr2) & mask, dim=1)
     h_best = hs[torch.argmax(counts)]
     res = _homography_transfer_sq(h_best, pts1, pts2)
     inliers = (res < thr2) & mask
@@ -570,9 +714,33 @@ def find_homography_ransac(
         inl_ref = (res_ref < thr2) & mask
         better = inl_ref.sum() >= inliers.sum()
         h_best, res, inliers = _keep_if_better(better, (h_ref, res_ref, inl_ref), (h_best, res, inliers))
-    return RansacResult(
-        matrix=h_best,
-        inliers=inliers,
-        num_inliers=inliers.sum(),
-        residuals=torch.where(mask, res, torch.full_like(res, torch.inf)),
-    )
+    residuals = torch.where(mask, res, torch.full_like(res, torch.inf))
+    if intrinsics is None:
+        return h_best, residuals, inliers, None, None
+    rv_h, tv_h = _decompose_homography(h_best, intrinsics)
+    return h_best, residuals, inliers, rv_h, tv_h
+
+
+def _homography_candidates(pts1, pts2, mask, generator, threshold=3.0, num_hypotheses=1024, intrinsics=None):
+    """A RANSAC homography (its own 4-point draws from ``generator``) and,
+    with ``intrinsics``, its 8 decompositions: (RansacResult, rvecs (8, 3),
+    unit tvecs (8, 3)), the last two None without."""
+    idx = sample_subsets(mask, num_hypotheses, 4, generator)
+    hs, counts = homography_hypotheses(pts1, pts2, mask, idx, threshold)
+    h, residuals, inliers, rv_h, tv_h = homography_polish(pts1, pts2, mask, hs, counts, threshold, intrinsics)
+    return RansacResult(matrix=h, inliers=inliers, num_inliers=inliers.sum(), residuals=residuals), rv_h, tv_h
+
+
+def find_homography_ransac(
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    mask: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    threshold: float = 3.0,
+    num_hypotheses: int = 1024,
+) -> RansacResult:
+    """Batched-RANSAC planar homography (4-point DLT hypotheses), polished by
+    an inlier-weighted DLT re-solve; ``residuals`` are symmetric transfer
+    errors (squared px). On the card two launches of one CUDA kernel."""
+    generator = generator or default_generator(pts1.device)
+    return _homography_candidates(pts1, pts2, mask, generator, threshold, num_hypotheses)[0]

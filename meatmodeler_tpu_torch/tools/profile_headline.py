@@ -298,11 +298,12 @@ ODOMETRY_STAGES = (
     (ransac, "estimate_relative_pose"),
     (triangulation, "triangulate_pairs"),
     (features, "good_features"),
-    (ransac, "_eight_point"),
-    (ransac, "_project_to_essential"),
+    (ransac, "essential_hypotheses"),
     (ransac, "recover_pose"),
+    (ransac, "homography_hypotheses"),
+    (ransac, "homography_polish"),
     (ransac, "refine_relative_pose"),
-    (ransac, "find_homography_ransac"),
+    (ransac, "score_candidates"),
 )
 
 

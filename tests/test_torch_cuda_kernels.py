@@ -986,3 +986,79 @@ def test_board_poses_on_cuda_match_cpu(cuda):
     torch.testing.assert_close(ext_g, ext_c, rtol=0, atol=1e-2)
     for name in ("calibration_rms_px", "pose_ba_rmse_px"):
         np.testing.assert_allclose(c_g[name], c_c[name], rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["odometry", "bootstrap", "two_view", "nan_padding", "zero_t"])
+def test_relpose_hyp_kernels_match_reference(cuda, case):
+    """The hypothesis, cheirality and scoring kernels (``csrc/relpose_hyp.cu``)
+    against their plain versions at the paths' seeded calls and the edges
+    (a NaN slot out of the mask; zero-t candidates), float32 and float64,
+    by ``relpose_bench.hyp_agreement``'s rules (held items: those float32
+    rounding does not decide); each dispatch point on CUDA tensors is one
+    launch of its kernel and gives that launch's result bit for bit."""
+    from meatmodeler_tpu_torch.geometry import ransac, ransac_hyp_cuda
+    from meatmodeler_tpu_torch.tools.relpose_bench import HYP_CALLS, hyp_agreement, hyp_agrees, hyp_case
+
+    for name, args in hyp_case(case, device=cuda).items():
+        kernel = HYP_CALLS[name]
+        before = ransac_hyp_cuda.LAUNCHES[kernel]
+        got = getattr(ransac, name)(*args)
+        assert ransac_hyp_cuda.LAUNCHES[kernel] == before + 1
+        once = getattr(ransac_hyp_cuda, name)(*args)
+        for x, y in zip(got, once):
+            if x is not None:
+                torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+        a = hyp_agreement(name, args)
+        assert hyp_agrees(name, a), (name, a)
+
+
+@pytest.mark.gpu
+def test_estimate_relative_pose_launches_each_kernel_once_without_syncs(cuda):
+    """One estimate on the card: each hypothesis, cheirality and scoring
+    kernel once (the homography's twice) and the refinement once, and no
+    synchronizing operation that torch's sync debug mode sees."""
+    import warnings
+
+    from meatmodeler_tpu_torch.geometry import ransac, ransac_cuda, ransac_hyp_cuda
+
+    k, p1, p2 = _two_view_scene()
+    mask = torch.ones(p1.shape[0], dtype=torch.bool)
+    args = [x.to(cuda) for x in (p1, p2, mask, k)]
+    ransac.estimate_relative_pose(*args)
+    torch.cuda.synchronize()
+    before = dict(ransac_hyp_cuda.LAUNCHES), ransac_cuda.LAUNCHES["refine_relpose"]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rv, tv, res = ransac.estimate_relative_pose(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    launched = {name: n - before[0][name] for name, n in ransac_hyp_cuda.LAUNCHES.items()}
+    assert launched == {"essential_hypotheses": 1, "homography_hypotheses": 2, "recover_pose": 1,
+                        "score_candidates": 1}
+    assert ransac_cuda.LAUNCHES["refine_relpose"] == before[1] + 1
+    assert int(res.num_inliers) > 250 and torch.isfinite(rv).all()
+
+
+@pytest.mark.gpu
+def test_relpose_hyp_wrappers_reject_bad_input(cuda):
+    """Mistyped, misshapen or mixed-device inputs raise before any launch;
+    no hypotheses or candidates launch nothing."""
+    from meatmodeler_tpu_torch.geometry import ransac_hyp_cuda
+    from meatmodeler_tpu_torch.tools.relpose_bench import hyp_case
+
+    case = hyp_case("odometry", device=cuda)
+    before = dict(ransac_hyp_cuda.LAUNCHES)
+    p1, p2, m, k, idx, thr2 = case["essential_hypotheses"]
+    for bad in ((p1, p2, m, k.cpu(), idx, thr2), (p1, p2, m.float(), k, idx, thr2), (p1, p2, m, k, idx[:, :4], thr2),
+                (p1, p2, m, k, idx, thr2.double())):
+        with pytest.raises(ValueError):
+            ransac_hyp_cuda.essential_hypotheses(*bad)
+    es, counts = ransac_hyp_cuda.essential_hypotheses(p1, p2, m, k, idx[:0], thr2)
+    assert es.shape == (0, 3, 3) and counts.shape == (0,)
+    rv, tv, votes = ransac_hyp_cuda.recover_pose(case["recover_pose"][0][:0], *case["recover_pose"][1:])
+    assert rv.shape == (0, 3) and votes.shape == (0, 4)
+    assert ransac_hyp_cuda.LAUNCHES == before
