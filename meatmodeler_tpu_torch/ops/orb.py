@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from meatmodeler_tpu_torch.ops import features as feat
+from meatmodeler_tpu_torch.utils.profiling import trace
 
 __all__ = ["OrbFeatures", "fast_score", "detect_and_compute"]
 
@@ -244,30 +245,33 @@ def _detect_chunk(img, max_features, num_levels, scale_factor, fast_threshold, g
     for lvl, budget in enumerate(_level_budgets(max_features, num_levels, scale_factor)):
         k = max(budget, 1)
         h, w = level_img.shape[-2:]
-        corner = fast_score(level_img, fast_threshold)
-        harris = feat.harris_response(level_img, block_size=7)
-        resp = torch.where(corner > 0, harris, torch.full_like(harris, -torch.inf))
-        # 3x3 NMS (max_pool pads with -inf, like reduce_window's init) + margin.
-        neigh = F.max_pool2d(resp[:, None], 3, stride=1, padding=1)[:, 0]
-        yy = torch.arange(h, device=img.device)[:, None]
-        xx = torch.arange(w, device=img.device)[None, :]
-        margin = _HALF + 1
-        ok = (resp >= neigh) & (yy >= margin) & (yy < h - margin) & (xx >= margin) & (xx < w - margin)
-        masked = torch.where(ok, resp, torch.full_like(resp, -torch.inf))
-        if grid_cells > 1 and h >= grid_cells and w >= grid_cells:
-            top_resp, top_idx = _grid_top_k(masked, k, grid_cells)
-        else:
-            top_resp, top_idx = _top_k(masked.reshape(bsz, -1), min(k, h * w))
-        k_eff = top_resp.shape[1]
-        if k_eff < k:
-            top_resp = F.pad(top_resp, (0, k - k_eff), value=-torch.inf)
-            top_idx = F.pad(top_idx, (0, k - k_eff))
-        kxy = torch.stack([(top_idx % w).to(torch.float32), (top_idx // w).to(torch.float32)], dim=-1)
-        kmask = torch.isfinite(top_resp)
+        with trace("detect"):  # FAST, Harris, NMS, top-k
+            corner = fast_score(level_img, fast_threshold)
+            harris = feat.harris_response(level_img, block_size=7)
+            resp = torch.where(corner > 0, harris, torch.full_like(harris, -torch.inf))
+            # 3x3 NMS (max_pool pads with -inf, like reduce_window's init) + margin.
+            neigh = F.max_pool2d(resp[:, None], 3, stride=1, padding=1)[:, 0]
+            yy = torch.arange(h, device=img.device)[:, None]
+            xx = torch.arange(w, device=img.device)[None, :]
+            margin = _HALF + 1
+            ok = (resp >= neigh) & (yy >= margin) & (yy < h - margin) & (xx >= margin) & (xx < w - margin)
+            masked = torch.where(ok, resp, torch.full_like(resp, -torch.inf))
+            if grid_cells > 1 and h >= grid_cells and w >= grid_cells:
+                top_resp, top_idx = _grid_top_k(masked, k, grid_cells)
+            else:
+                top_resp, top_idx = _top_k(masked.reshape(bsz, -1), min(k, h * w))
+            k_eff = top_resp.shape[1]
+            if k_eff < k:
+                top_resp = F.pad(top_resp, (0, k - k_eff), value=-torch.inf)
+                top_idx = F.pad(top_idx, (0, k - k_eff))
+            kxy = torch.stack([(top_idx % w).to(torch.float32), (top_idx // w).to(torch.float32)], dim=-1)
+            kmask = torch.isfinite(top_resp)
 
-        blurred = _gauss7(level_img)
-        angle = torch.stack([_orientation(level_img[i], kxy[i], kmask[i]) for i in range(bsz)])
-        desc = torch.stack([_describe(blurred[i], kxy[i], angle[i], kmask[i]) for i in range(bsz)])
+        with trace("orientation"):
+            angle = torch.stack([_orientation(level_img[i], kxy[i], kmask[i]) for i in range(bsz)])
+        with trace("describe"):
+            blurred = _gauss7(level_img)
+            desc = torch.stack([_describe(blurred[i], kxy[i], angle[i], kmask[i]) for i in range(bsz)])
         outs.append(
             OrbFeatures(
                 xy=kxy * (scale_factor**lvl),
@@ -279,9 +283,10 @@ def _detect_chunk(img, max_features, num_levels, scale_factor, fast_threshold, g
             )
         )
         if lvl < num_levels - 1:
-            nh = max(int(round(h / scale_factor)), _PATCH + 2)
-            nw = max(int(round(w / scale_factor)), _PATCH + 2)
-            level_img = _resize(level_img, nh, nw)
+            with trace("pyramid"):
+                nh = max(int(round(h / scale_factor)), _PATCH + 2)
+                nw = max(int(round(w / scale_factor)), _PATCH + 2)
+                level_img = _resize(level_img, nh, nw)
     return OrbFeatures(*(torch.cat(parts, dim=1) for parts in zip(*outs)))
 
 

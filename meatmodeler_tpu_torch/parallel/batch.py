@@ -48,7 +48,7 @@ from meatmodeler_tpu_torch.solvers import bundle_adjust
 from meatmodeler_tpu_torch.utils import Metrics
 from meatmodeler_tpu_torch.utils.checkpoint import StageCheckpointer
 from meatmodeler_tpu_torch.utils.numerics import load_cuda_linalg
-from meatmodeler_tpu_torch.utils.profiling import profile_run
+from meatmodeler_tpu_torch.utils.profiling import profile_run, trace
 
 __all__ = ["process_batch"]
 
@@ -143,14 +143,20 @@ def _batch_prepass(videos, config, known_corners, metrics_list, device):
     out = []
     for clip, known, metrics in zip(videos, known_corners, metrics_list):
         with metrics.stage("pass1_keyframes"):
-            small = native_ops.bgr_to_grey_down(clip, scale)
+            with trace("decim"):
+                small = native_ops.bgr_to_grey_down(clip, scale)
             if use_cpp:
-                scanner = HostPass1Scanner(config, small.shape[1], small.shape[2], full_width=w)
-                flags, enh = scanner.scan(small, bootstrap_at=0)
-                flags = flags[1:]
+                with trace("host_scan"):
+                    scanner = HostPass1Scanner(config, small.shape[1], small.shape[2], full_width=w)
+                    flags, enh = scanner.scan(small, bootstrap_at=0)
+                    flags = flags[1:]
             else:
-                enh = clahe.clahe(torch.from_numpy(small).to(device).to(torch.float32))
-                flags = scan_chunk(init_carry(enh[0]), enh[1:], width_scale=scale)[1].cpu().numpy()
+                with trace("upload"):
+                    enh = clahe.clahe(torch.from_numpy(small).to(device).to(torch.float32))
+                with trace("scan"):
+                    flags_dev = scan_chunk(init_carry(enh[0]), enh[1:], width_scale=scale)[1]
+                with trace("flags_read"):
+                    flags = flags_dev.cpu().numpy()
             kf_idx = [0] + [int(i) + 1 for i in np.nonzero(flags)[0]]
         if len(kf_idx) > config.tracks.max_keyframes:
             raise ValueError(
@@ -240,13 +246,15 @@ def _solve_and_finish_batch(pres, config, metrics_list, paths, mesh=None) -> Lis
         metrics.count("batch_solve_s", solve_s)  # the whole batch's solve
         metrics.count("points", n_pts)
         vol_hull, vol_carve, volume_confidence = _volume_of(pts, ext4, pre, config, metrics)
-        pts_np = pts.cpu().numpy()
+        with metrics.stage("result"):  # the host copies and the deferred counters' reads
+            pts_np, ext_np, intr_np, dist_np = (t.cpu().numpy() for t in (pts, ext4, pre.intrinsics, pre.dist))
+            metrics.flush()
         ply_path = ply_mod.write_ply(str(path) + "Cloud.ply", pts_np) if path is not None else None
         out.append(ProcessResult(
             points=pts_np,
-            extrinsics=ext4.cpu().numpy(),
-            intrinsics=pre.intrinsics.cpu().numpy(),
-            distortion=pre.dist.cpu().numpy(),
+            extrinsics=ext_np,
+            intrinsics=intr_np,
+            distortion=dist_np,
             volume=vol_hull,
             volume_carved=vol_carve,
             ply_path=ply_path,

@@ -56,6 +56,7 @@ from meatmodeler_tpu_torch.ops import board_detect, chessboard, clahe, features,
 from meatmodeler_tpu_torch.solvers import bundle_adjust
 from meatmodeler_tpu_torch.utils import Metrics, numerics
 from meatmodeler_tpu_torch.utils.checkpoint import StageCheckpointer
+from meatmodeler_tpu_torch.utils.profiling import profile_run, trace
 
 __all__ = ["ProcessResult", "process"]
 
@@ -342,8 +343,6 @@ def _run_pass1(video, config, pattern, known_corners, metrics, device, markerfre
     Returns (kf_frames, kf_corners (known/bootstrap corners, else None),
     kf_small, kf_indices, frames_total, pass-1 scale, pass-2 scale).
     """
-    import time as _time
-
     init_carry, scan_chunk = _make_keyframe_scan(config)
     source = video_mod.FrameSource(video)
     scale, p2s = config.pass1_downscale, config.pass2_downscale
@@ -362,12 +361,10 @@ def _run_pass1(video, config, pattern, known_corners, metrics, device, markerfre
         for chunk in source.chunks(config.frame_chunk):
             scale, p2s = _auto_scales(chunk, scale, p2s)
             n = len(chunk)
-            t0 = _time.perf_counter()
-            grey_host = native_ops.bgr_to_grey_down(chunk, scale)
-            t1 = _time.perf_counter()
-            greys = clahe.clahe(torch.from_numpy(grey_host).to(device).to(torch.float32))
-            metrics.add("pass1_decim_s", t1 - t0)
-            metrics.add("pass1_upload_s", _time.perf_counter() - t1)
+            with trace("decim"):
+                grey_host = native_ops.bgr_to_grey_down(chunk, scale)
+            with trace("upload"):
+                greys = clahe.clahe(torch.from_numpy(grey_host).to(device).to(torch.float32))
 
             idx0 = frame_idx
             frame_idx += n
@@ -375,41 +372,42 @@ def _run_pass1(video, config, pattern, known_corners, metrics, device, markerfre
             if carry is None:
                 # Discard leading frames until the board is visible
                 # (processor.py:315-319), within the probe's budget.
-                start = None
-                if markerfree or known_corners is not None:
-                    start = 0
-                    c0 = _known_board(known_corners, idx0, pattern) if known_corners is not None else None
-                    retain(chunk[0], greys[0], c0, idx0)
-                else:
-                    for i, c0 in enumerate(_detect_board_device_batch(greys, pattern, scale, config.chessboard)):
-                        if c0 is not None:
-                            start = i
-                            retain(chunk[i], greys[i], c0, idx0 + i)
-                            break
-                        probe.note_miss()
+                with trace("board_hunt"):
+                    start = None
+                    if markerfree or known_corners is not None:
+                        start = 0
+                        c0 = _known_board(known_corners, idx0, pattern) if known_corners is not None else None
+                        retain(chunk[0], greys[0], c0, idx0)
+                    else:
+                        for i, c0 in enumerate(_detect_board_device_batch(greys, pattern, scale, config.chessboard)):
+                            if c0 is not None:
+                                start = i
+                                retain(chunk[i], greys[i], c0, idx0 + i)
+                                break
+                            probe.note_miss()
+                    if start is not None:
+                        carry = init_carry(greys[start])
                 if start is None:
                     if probe.exhausted:
                         metrics.count("board_probe_exhausted", probe.probed)
                         break
                     continue
-                carry = init_carry(greys[start])
                 offset = start + 1
                 if offset >= n:
                     continue
 
-            t0 = _time.perf_counter()
             # As in the reference, the scan runs over the whole chunk, the
             # bootstrap frame and those before it included; their flags are
             # dropped.
-            carry, flags_dev = scan_chunk(carry, greys, width_scale=scale)
-            t1 = _time.perf_counter()
-            flags = flags_dev.cpu().numpy()
+            with trace("scan"):
+                carry, flags_dev = scan_chunk(carry, greys, width_scale=scale)
+            with trace("flags_read"):
+                flags = flags_dev.cpu().numpy()
             flags[:offset] = False
-            metrics.add("pass1_scan_dispatch_s", t1 - t0)
-            metrics.add("pass1_sync_s", _time.perf_counter() - t1)
-            for i in np.nonzero(flags)[0]:
-                c = _known_board(known_corners, idx0 + int(i), pattern) if known_corners is not None else None
-                retain(chunk[i], greys[i], c, idx0 + int(i))
+            with trace("retain"):
+                for i in np.nonzero(flags)[0]:
+                    c = _known_board(known_corners, idx0 + int(i), pattern) if known_corners is not None else None
+                    retain(chunk[i], greys[i], c, idx0 + int(i))
 
         metrics.count("frames_total", frame_idx)
         metrics.count("keyframes_selected", len(kf_frames))
@@ -423,8 +421,6 @@ def _run_pass1_host(video, config, pattern, known_corners, metrics, device, mark
     resolution, with its known corners (``None`` when marker-free). Same
     return tuple as :func:`_run_pass1` (no small greys: no keyframe goes
     through the board detector)."""
-    import time as _time
-
     source = video_mod.FrameSource(video)
     scale, p2s = config.pass1_downscale, config.pass2_downscale
     with metrics.stage("pass1_keyframes"):
@@ -439,25 +435,24 @@ def _run_pass1_host(video, config, pattern, known_corners, metrics, device, mark
 
         for chunk in source.chunks(config.frame_chunk):
             scale, p2s = _auto_scales(chunk, scale, p2s)
-            t_d0 = _time.perf_counter()
-            grey_host = native_ops.bgr_to_grey_down(chunk, scale)
-            metrics.add("pass1_decim_s", _time.perf_counter() - t_d0)
-            if scanner is None:
-                scanner = HostPass1Scanner(
-                    config, grey_host.shape[1], grey_host.shape[2], full_width=chunk.shape[2]
-                )
+            with trace("decim"):
+                grey_host = native_ops.bgr_to_grey_down(chunk, scale)
             idx0 = frame_idx
             frame_idx += len(chunk)
-            bootstrap_at = 0 if not scanner.initialized else -1
-            t_s0 = _time.perf_counter()
-            flags, _ = scanner.scan(grey_host, bootstrap_at=bootstrap_at)
-            metrics.add("pass1_host_scan_s", _time.perf_counter() - t_s0)
-            if bootstrap_at >= 0:
-                # The bootstrap frame is always a keyframe.
-                retain(chunk[0], idx0)
-                flags[:1] = False
-            for i in np.nonzero(flags)[0]:
-                retain(chunk[i], idx0 + int(i))
+            with trace("host_scan"):
+                if scanner is None:
+                    scanner = HostPass1Scanner(
+                        config, grey_host.shape[1], grey_host.shape[2], full_width=chunk.shape[2]
+                    )
+                bootstrap_at = 0 if not scanner.initialized else -1
+                flags, _ = scanner.scan(grey_host, bootstrap_at=bootstrap_at)
+            with trace("retain"):
+                if bootstrap_at >= 0:
+                    # The bootstrap frame is always a keyframe.
+                    retain(chunk[0], idx0)
+                    flags[:1] = False
+                for i in np.nonzero(flags)[0]:
+                    retain(chunk[i], idx0 + int(i))
 
         metrics.count("frames_total", frame_idx)
         metrics.count("keyframes_selected", len(kf_frames))
@@ -690,16 +685,16 @@ def _pass2_to_preba(config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_i
                 kf_stack = clahe.clahe(frames.to(torch.float32))
             else:
                 kf_stack = clahe.enhanced_grey(frames)
-    if ckpt.enabled and not ckpt.has("keyframes"):
-        ckpt.save(
-            "keyframes",
-            greys=kf_stack.cpu().numpy(),
-            # (n_kf, 0, 2) = the marker-free sentinel for resume.
-            corners=np.zeros((n_kf, 0, 2), np.float32) if markerless else np.stack(kf_corners),
-            frames_total=frame_idx,
-            kf_scale=p2s,
-            indices=np.asarray(kf_indices, np.int64),
-        )
+            if ckpt.enabled and not ckpt.has("keyframes"):
+                ckpt.save(
+                    "keyframes",
+                    greys=kf_stack.cpu().numpy(),
+                    # (n_kf, 0, 2) = the marker-free sentinel for resume.
+                    corners=np.zeros((n_kf, 0, 2), np.float32) if markerless else np.stack(kf_corners),
+                    frames_total=frame_idx,
+                    kf_scale=p2s,
+                    indices=np.asarray(kf_indices, np.int64),
+                )
 
     with metrics.stage("pass2_orb"):
         oc = config.orb
@@ -745,11 +740,11 @@ def _pass2_to_preba(config, metrics, ckpt, kf_stack, kf_frames, kf_corners, kf_i
         )
         metrics.count_async("triangulated", tri_valid.sum())
         metrics.count_async("outlier_tracks_dropped", n_outlier)
-
-    return _finish_preba(
-        store, tri_valid, track_parallax, ext_refined, intr, dist_coefs,
-        (int(w), int(h)), p2s, float(config.orb.scale_factor), markerless,
-    )
+        with trace("observations"):
+            return _finish_preba(
+                store, tri_valid, track_parallax, ext_refined, intr, dist_coefs,
+                (int(w), int(h)), p2s, float(config.orb.scale_factor), markerless,
+            )
 
 
 def _board_poses(config, metrics, kf_stack, kf_corners, w, h, p2s, device):
@@ -984,7 +979,7 @@ def process(
     _check_supported(config, known_corners)
     metrics = Metrics()
     ckpt = StageCheckpointer(checkpoint_dir)
-    with full_fp32(), torch.no_grad():
+    with profile_run(), full_fp32(), torch.no_grad():
         pre = _reconstruct_to_ba(video, config, known_corners, metrics, ckpt, device)
         return _solve_and_finish(pre, config, metrics, ckpt, path)
 
@@ -1145,20 +1140,23 @@ def _solve_and_finish(pre: PreBA, config, metrics, ckpt, path) -> ProcessResult:
             )
 
     vol_hull, vol_carve, volume_confidence = _volume_of(new_pts, new_ext, pre, config, metrics)
-    new_pts_np = new_pts.cpu().numpy()
+    with metrics.stage("result"):  # the host copies and the deferred counters' reads
+        pts_np, ext_np, intr_np, dist_np = (t.cpu().numpy() for t in (new_pts, new_ext, pre.intrinsics, pre.dist))
+        rmse = float(ba_res.rmse)
+        metrics.flush()
     ply_path = None
     if path is not None:
         with metrics.stage("ply_export"):
-            ply_path = ply_mod.write_ply(str(path) + "Cloud.ply", new_pts_np)
+            ply_path = ply_mod.write_ply(str(path) + "Cloud.ply", pts_np)
     return ProcessResult(
-        points=new_pts_np,
-        extrinsics=new_ext.cpu().numpy(),
-        intrinsics=pre.intrinsics.cpu().numpy(),
-        distortion=pre.dist.cpu().numpy(),
+        points=pts_np,
+        extrinsics=ext_np,
+        intrinsics=intr_np,
+        distortion=dist_np,
         volume=vol_hull,
         volume_carved=vol_carve,
         ply_path=ply_path,
-        reprojection_rmse=float(ba_res.rmse),
+        reprojection_rmse=rmse,
         metrics=metrics.as_dict(),
         volume_confidence=volume_confidence,
     )

@@ -6,7 +6,12 @@ the hand-written kernel ``csrc/ba_jac.cu`` an iteration on the card,
 forward-mode AD on the CPU), block-diagonal U (F,6,6) / V (P,3,3), point elimination through the
 dense (P, F*6, 3) strip, a dense reduced camera solve, back-substitution,
 and the Marquardt-damped LM loop with the reference's ftol rule. The loop is
-a Python loop that reads one flag back per iteration. Problems are solved
+a Python loop that reads one flag back per iteration. Each iteration runs
+in three spans (``utils/profiling.trace``): ``linearize`` (residuals and
+Jacobians), ``solve`` (the normal equations and both trial steps, with
+``torch.linalg``'s info reads) and ``decide`` (the acceptance rule and the
+flag read); each loop adds its iterations to the counter
+``lm_iterations:<path>`` of the span it runs in. Problems are solved
 at their exact shapes: the reference's bucket padding exists only so XLA
 compiles once, and its padded rows are masked out, so the trajectory is the
 same.
@@ -34,6 +39,7 @@ from meatmodeler_tpu_torch.geometry import projection
 from meatmodeler_tpu_torch.ops import cuda_build
 from meatmodeler_tpu_torch.solvers import bundle_adjust_cuda
 from meatmodeler_tpu_torch.utils.numerics import one_thread_at_a_time
+from meatmodeler_tpu_torch.utils.profiling import span_add, trace
 
 __all__ = ["BAProblem", "BAResult", "solve_ba", "solve_ba_batch", "adjust_points", "adjust_pose", "pose_only_refine"]
 
@@ -258,8 +264,9 @@ def _solve_shards(shards, config: SolverConfig, fix_points: bool = False, init_l
     lam = [torch.as_tensor(lam0, dtype=c.dtype, device=c.device) for c in cam]
     it = 0
     while it < config.max_iters:
-        r = [_residuals(c, x, *_fields(p)) for p, c, x in zip(shards, cam, pts)]
-        jc, jp = zip(*(_obs_jacobians(c, x, *_fields(p)) for p, c, x in zip(shards, cam, pts)))
+        with trace("linearize"):
+            r = [_residuals(c, x, *_fields(p)) for p, c, x in zip(shards, cam, pts)]
+            jc, jp = zip(*(_obs_jacobians(c, x, *_fields(p)) for p, c, x in zip(shards, cam, pts)))
 
         def attempt(lam_try):
             steps = _solve_normal_equations(
@@ -270,18 +277,21 @@ def _solve_shards(shards, config: SolverConfig, fix_points: bool = False, init_l
             new_pts = [x + dp for x, (_, dp) in zip(pts, steps)]
             return new_cam, new_pts, costs(new_cam, new_pts)
 
-        c1_cam, c1_pts, c1 = attempt(lam)
-        c2_cam, c2_pts, c2 = attempt([l * config.lambda_up**2 for l in lam])
-        done = []
-        for s in range(len(shards)):
-            use1, improved, cost[s], lam_s, done_s = _lm_decision(config, cost[s], lam[s], c1[s], c2[s])
-            cam[s] = torch.where(improved, torch.where(use1, c1_cam[s], c2_cam[s]), cam[s])
-            pts[s] = torch.where(improved, torch.where(use1, c1_pts[s], c2_pts[s]), pts[s])
-            lam[s] = lam_s
-            done.append(done_s)
+        with trace("solve"):
+            c1_cam, c1_pts, c1 = attempt(lam)
+            c2_cam, c2_pts, c2 = attempt([l * config.lambda_up**2 for l in lam])
         it += 1
-        if bool(done[0]):  # the one host read per iteration
-            break
+        with trace("decide"):
+            done = []
+            for s in range(len(shards)):
+                use1, improved, cost[s], lam_s, done_s = _lm_decision(config, cost[s], lam[s], c1[s], c2[s])
+                cam[s] = torch.where(improved, torch.where(use1, c1_cam[s], c2_cam[s]), cam[s])
+                pts[s] = torch.where(improved, torch.where(use1, c1_pts[s], c2_pts[s]), pts[s])
+                lam[s] = lam_s
+                done.append(done_s)
+            if bool(done[0]):  # the one host read per iteration
+                break
+    span_add("lm_iterations", it)
 
     def sum_sq(p, c, x):  # the UNWEIGHTED pixel residuals, whatever the weights
         r_px = _residuals(c, x, *_fields(p)[:-1])
@@ -359,8 +369,14 @@ def solve_ba_batch(problem: BAProblem, config: SolverConfig = SolverConfig()) ->
     flag per iteration. ``iterations`` and the other result fields are
     per lane."""
     lm = _BatchSolve(problem, config)
-    while config.max_iters > 0 and bool(lm.step()):  # the one host read per iteration
-        pass
+    iterations = 0
+    while config.max_iters > 0:
+        active = lm.step()
+        iterations += 1
+        with trace("decide"):
+            if not bool(active):  # the one host read per iteration
+                break
+    span_add("lm_iterations", iterations)
     return lm.result()
 
 
@@ -390,25 +406,28 @@ class _BatchSolve:
         """One LM iteration of every active lane; returns the "any lane
         still active" flag, on the device (not read)."""
         config, cam, pts, lam, active = self.config, self.cam, self.pts, self.lam, self.active
-        r = vmap(_residuals)(cam, pts, *self.weighted)
-        jc, jp = _obs_jacobians(cam, pts, *self.weighted)
+        with trace("linearize"):
+            r = vmap(_residuals)(cam, pts, *self.weighted)
+            jc, jp = _obs_jacobians(cam, pts, *self.weighted)
 
         def attempt(lam_try):
             dc, dp = _solve_normal_equations_batch(self.problem._replace(cam_params=cam, points=pts), lam_try, jc, jp, r)
             return cam + dc, pts + dp, self._costs(cam + dc, pts + dp)
 
-        c1_cam, c1_pts, c1 = attempt(lam)
-        c2_cam, c2_pts, c2 = attempt(lam * config.lambda_up**2)
-        use1, improved, new_cost, new_lam, done = _lm_decision(config, self.cost, lam, c1, c2)
-        # Lanes that have stopped keep their state.
-        step = (active & improved)[:, None, None]
-        self.cam = torch.where(step, torch.where(use1[:, None, None], c1_cam, c2_cam), cam)
-        self.pts = torch.where(step, torch.where(use1[:, None, None], c1_pts, c2_pts), pts)
-        self.cost = torch.where(active, new_cost, self.cost)
-        self.lam = torch.where(active, new_lam, lam)
-        self.it = self.it + active.to(torch.int64)
-        self.active = active & ~done & (self.it < config.max_iters)
-        return self.active.any()
+        with trace("solve"):
+            c1_cam, c1_pts, c1 = attempt(lam)
+            c2_cam, c2_pts, c2 = attempt(lam * config.lambda_up**2)
+        with trace("decide"):
+            use1, improved, new_cost, new_lam, done = _lm_decision(config, self.cost, lam, c1, c2)
+            # Lanes that have stopped keep their state.
+            step = (active & improved)[:, None, None]
+            self.cam = torch.where(step, torch.where(use1[:, None, None], c1_cam, c2_cam), cam)
+            self.pts = torch.where(step, torch.where(use1[:, None, None], c1_pts, c2_pts), pts)
+            self.cost = torch.where(active, new_cost, self.cost)
+            self.lam = torch.where(active, new_lam, lam)
+            self.it = self.it + active.to(torch.int64)
+            self.active = active & ~done & (self.it < config.max_iters)
+            return self.active.any()
 
     def result(self) -> BAResult:
         r_px = vmap(_residuals)(self.cam, self.pts, *self.fixed)
@@ -597,27 +616,33 @@ def pose_only_refine(
     lam = torch.full((b,), config.init_lambda, dtype=cam.dtype, device=device)
     it = torch.zeros(b, dtype=torch.int64, device=device)
     active = torch.full((b,), config.max_iters > 0, dtype=torch.bool, device=device)
+    iterations = 0
     while config.max_iters > 0:
-        r = residuals(cam)
-        jc, jp = _obs_jacobians(
-            cam, problem.points, problem.intrinsics, problem.obs, problem.frame_idx,
-            problem.point_idx, problem.mask,
-        )
+        with trace("linearize"):
+            r = residuals(cam)
+            jc, jp = _obs_jacobians(
+                cam, problem.points, problem.intrinsics, problem.obs, problem.frame_idx,
+                problem.point_idx, problem.mask,
+            )
 
         def attempt(lam_try):
             [(dc, _)] = _solve_normal_equations([problem._replace(cam_params=cam)], [lam_try], [jc], [jp], [r], fix_points=True)
             return cam + dc, costs(cam + dc)
 
-        c1_cam, c1 = attempt(lam)
-        c2_cam, c2 = attempt(lam * config.lambda_up**2)
-        use1, improved, new_cost, new_lam, done = _lm_decision(config, cost, lam, c1, c2)
-        new_cam = torch.where(improved[:, None], torch.where(use1[:, None], c1_cam, c2_cam), cam)
-        # Problems that have stopped keep their state.
-        cam = torch.where(active[:, None], new_cam, cam)
-        cost = torch.where(active, new_cost, cost)
-        lam = torch.where(active, new_lam, lam)
-        it = it + active.to(torch.int64)
-        active = active & ~done & (it < config.max_iters)
-        if not bool(active.any()):  # the one host read per iteration
-            break
+        with trace("solve"):
+            c1_cam, c1 = attempt(lam)
+            c2_cam, c2 = attempt(lam * config.lambda_up**2)
+        iterations += 1
+        with trace("decide"):
+            use1, improved, new_cost, new_lam, done = _lm_decision(config, cost, lam, c1, c2)
+            new_cam = torch.where(improved[:, None], torch.where(use1[:, None], c1_cam, c2_cam), cam)
+            # Problems that have stopped keep their state.
+            cam = torch.where(active[:, None], new_cam, cam)
+            cost = torch.where(active, new_cost, cost)
+            lam = torch.where(active, new_lam, lam)
+            it = it + active.to(torch.int64)
+            active = active & ~done & (it < config.max_iters)
+            if not bool(active.any()):  # the one host read per iteration
+                break
+    span_add("lm_iterations", iterations)
     return cam

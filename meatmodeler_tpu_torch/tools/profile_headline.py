@@ -71,7 +71,6 @@ import statistics
 import sys
 import tempfile
 import time
-import warnings
 from pathlib import Path
 
 import numpy as np
@@ -87,7 +86,6 @@ from meatmodeler_tpu_torch.config import (
     TrackConfig,
     VolumeConfig,
 )
-from meatmodeler_tpu_torch import pipeline
 from meatmodeler_tpu_torch.geometry import calibration_cuda, pnp_cuda, projection, ransac, ransac_cuda, so3, triangulation
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
 from meatmodeler_tpu_torch.odometry import chain_poses
@@ -251,41 +249,34 @@ def odometry_accuracy(res, gt_poses, first_steps=10) -> dict:
 
 
 def count_host_syncs(run):
-    """Run ``run()`` and count its host syncs: LM iterations (each reads one
-    flag back: calls of ``bundle_adjust._lm_decision``) and every
-    synchronizing CUDA operation (``torch.cuda.set_sync_debug_mode``), in
-    all and inside the marker-free pose chain. Returns (run's result,
-    counts)."""
-    counts = {"lm_iterations": 0, "cuda_syncs": 0, "chain_lm_iterations": 0, "chain_cuda_syncs": 0}
-    in_chain = [False]
-    real_decision, real_chain = bundle_adjust._lm_decision, pipeline._chain_keyframe_poses
-
-    def decision(*args):
-        counts["lm_iterations"] += 1
-        counts["chain_lm_iterations"] += in_chain[0]
-        return real_decision(*args)
-
-    def chain(*args, **kwargs):
-        in_chain[0] = True
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            try:
-                return real_chain(*args, **kwargs)
-            finally:
-                in_chain[0] = False
-                counts["chain_cuda_syncs"] += sum("synchronizing" in str(w.message) for w in caught)
-
-    bundle_adjust._lm_decision, pipeline._chain_keyframe_poses = decision, chain
-    torch.cuda.set_sync_debug_mode("warn")
+    """Run ``run()`` (a ``process`` or ``chain_poses`` call) with
+    ``MEATMODELER_SYNC_STAGES=1`` and read its host syncs from the
+    program's own counters: ``host_reads:<span>`` (each synchronizing CUDA
+    operation, by the span it ran in) and ``lm_iterations:<span>`` (each LM
+    iteration reads one flag back), in all and inside the marker-free pose
+    chain. Returns (run's result, counts)."""
+    os.environ["MEATMODELER_SYNC_STAGES"] = "1"
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            out = run()
-        counts["cuda_syncs"] = sum("synchronizing" in str(w.message) for w in caught) + counts["chain_cuda_syncs"]
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
     finally:
-        torch.cuda.set_sync_debug_mode(0)
-        bundle_adjust._lm_decision, pipeline._chain_keyframe_poses = real_decision, real_chain
-    return out, counts
+        del os.environ["MEATMODELER_SYNC_STAGES"]
+    counters = res.metrics["counters"]
+
+    def by_span(prefix):
+        return {k[len(prefix):]: v for k, v in counters.items() if k.startswith(prefix)}
+
+    reads, iterations = by_span("host_reads:"), by_span("lm_iterations:")
+
+    def in_chain(table):
+        return sum(v for path, v in table.items() if path.split("/")[0] == "pose_chain")
+
+    return res, {
+        "lm_iterations": sum(iterations.values()), "cuda_syncs": sum(reads.values()),
+        "chain_lm_iterations": in_chain(iterations), "chain_cuda_syncs": in_chain(reads),
+        "host_reads_by_span": reads, "lm_iterations_by_span": iterations, "wall_s": wall,
+    }
 
 
 # The calls that make up one odometry step, timed in its synced run; the
@@ -592,8 +583,8 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_po
     finally:
         del os.environ["MEATMODELER_SYNC_STAGES"]
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    # Pass 1's own split (decimation, upload, scan dispatch, flag sync, ...).
-    pass1 = {k: v for k, v in res.metrics["counters"].items() if k.startswith("pass1_") and k.endswith("_s")}
+    # Pass 1's own split: the children of its span (decimation, upload, scan, flags' read, ...).
+    pass1 = {k: v for k, v in res.metrics["timings"].items() if k.startswith("pass1_keyframes/")}
     rep["synced"] = {"wall_s": wall, "stages": res.metrics["timings"], "pass1_split_s": pass1, "peak_alloc_mib": peak_mib}
     print(f"[{label}] synced: wall {wall} s peak alloc {peak_mib} MiB stages {json.dumps(res.metrics['timings'])} "
           f"pass1 split {json.dumps(pass1)}")
@@ -601,9 +592,9 @@ def profile_path(label, scene, frames, corners, config, warm_runs, report, gt_po
     rep["profiled"] = _profiled(label, lambda: process(frames, config=config, known_corners=corners, device="cuda"))
 
     if gt_poses is not None:
-        (wall, _), syncs = count_host_syncs(lambda: _timed_process(frames, corners, config))
-        rep["host_syncs"] = dict(syncs, wall_s=wall)
-        print(f"[{label}] host syncs (sync debug mode on, wall {wall} s): {json.dumps(syncs)}")
+        _, syncs = count_host_syncs(lambda: process(frames, config=config, known_corners=corners, device="cuda"))
+        rep["host_syncs"] = syncs
+        print(f"[{label}] host syncs (sync debug mode on): {json.dumps(syncs)}")
 
 
 def _stage_sums(results) -> dict:

@@ -1062,3 +1062,72 @@ def test_relpose_hyp_wrappers_reject_bad_input(cuda):
     rv, tv, votes = ransac_hyp_cuda.recover_pose(case["recover_pose"][0][:0], *case["recover_pose"][1:])
     assert rv.shape == (0, 3) and votes.shape == (0, 4)
     assert ransac_hyp_cuda.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["known", "video", "odometry"])
+def test_host_reads_all_fall_inside_spans(cuda, path, monkeypatch):
+    """A small ``process`` call, known corners (host pass 1) or video alone
+    (device pass 1 and detector), and a short ``chain_poses``: under
+    ``MEATMODELER_SYNC_STAGES`` no synchronizing operation reaches the
+    caller's warnings (each fell inside a span and counted there), and the
+    ``host_reads:*`` counters sum to the synchronizing operations of the
+    same call with sync debug mode held by the caller around the whole of it
+    (the LM loops took the same iterations in both calls); the caller's
+    mode is back after it."""
+    import dataclasses
+    import warnings
+
+    from meatmodeler_tpu_torch.config import DEFAULT_CONFIG, MatcherConfig, OrbConfig, TrackConfig, VolumeConfig
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+    from meatmodeler_tpu_torch.odometry import chain_poses
+    from meatmodeler_tpu_torch.pipeline import process
+    from meatmodeler_tpu_torch.utils.profiling import SYNC_WARNING
+
+    config = dataclasses.replace(
+        DEFAULT_CONFIG,
+        keyframe=dataclasses.replace(DEFAULT_CONFIG.keyframe, max_corners=256, threshold=0.02),
+        orb=OrbConfig(num_features=768, num_levels=2),
+        matcher=MatcherConfig(max_matches=512),
+        tracks=TrackConfig(max_tracks=2048, max_keyframes=32),
+        volume=VolumeConfig(voxel_resolution=48),
+        frame_chunk=8,
+    )
+    if path == "known":
+        config = dataclasses.replace(config, pass1_backend="host", pass2_enhance="grey")
+    else:
+        config = dataclasses.replace(config, chessboard=dataclasses.replace(config.chessboard, detector="device"))
+    scene = TurntableScene(image_size=(400, 300), focal=420.0, noise_sigma=1.0)
+    frames, _, corners = render_sequence(scene, 40, seed=0)
+
+    def run():
+        if path == "odometry":
+            return chain_poses(frames[:8], scene.intrinsics, device="cuda")
+        return process(frames, config=config, known_corners=corners if path == "known" else None, device="cuda")
+
+    def syncs(caught):
+        return [w for w in caught if SYNC_WARNING in str(w.message)]
+
+    run()  # warm: libraries, handles, allocator
+    monkeypatch.delenv("MEATMODELER_SYNC_STAGES", raising=False)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            plain = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    total = len(syncs(caught))
+    monkeypatch.setenv("MEATMODELER_SYNC_STAGES", "1")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        spanned = run()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    stray = syncs(caught)
+    assert not stray, sorted({f"{w.filename}:{w.lineno}" for w in stray})
+    counters = spanned.metrics["counters"]
+    reads = {k: v for k, v in counters.items() if k.startswith("host_reads:")}
+    print(f"{path}: {total} synchronizing operations; by span {reads}")
+    iterations = {k: v for k, v in counters.items() if k.startswith("lm_iterations:")}
+    assert iterations == {k: v for k, v in plain.metrics["counters"].items() if k.startswith("lm_iterations:")}
+    assert total > 0 and sum(reads.values()) == total

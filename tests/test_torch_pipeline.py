@@ -89,6 +89,38 @@ def test_metrics_populated(runs):
     assert m["counters"]["matches_per_pair"] == runs["jax"].metrics["counters"]["matches_per_pair"]
 
 
+# The stages ``process`` has named since before its spans nested; the known
+# path runs these, plus ``result`` (the host copies at the end).
+KNOWN_PATH_STAGES = {
+    "pass1_keyframes", "board_detect", "pass2_preprocess", "pass2_orb", "pass2_matching", "pass2_tracks", "corner_refine",
+    "calibration", "pose_estimation", "pose_ba", "triangulation", "bundle_adjustment", "volume", "ply_export",
+}
+
+
+def test_spans_nest_under_the_stages(runs):
+    """Every timing's path starts at a top-level stage of the same names as
+    before; pass 1's, ORB's and the LM loops' parts are its children; each
+    LM loop counts its iterations under its stage; no host read is counted
+    without ``MEATMODELER_SYNC_STAGES``."""
+    m = runs["torch"].metrics
+    timings, counters = m["timings"], m["counters"]
+    stages = {k for k in timings if "/" not in k}
+    assert stages == KNOWN_PATH_STAGES | {"result"}
+    assert {k.split("/")[0] for k in timings} == stages
+    children = {
+        "pass1_keyframes/decim", "pass1_keyframes/host_scan", "pass1_keyframes/retain",
+        "pass2_orb/detect", "pass2_orb/orientation", "pass2_orb/describe", "pass2_orb/pyramid",
+        "pose_ba/linearize", "pose_ba/solve", "pose_ba/decide", "bundle_adjustment/linearize",
+        "bundle_adjustment/solve", "bundle_adjustment/decide", "triangulation/observations",
+    }
+    assert children <= set(timings)
+    for child in children:
+        assert timings[child] <= timings[child.split("/")[0]]
+    assert counters["lm_iterations:bundle_adjustment"] == counters["ba_iterations"]
+    assert counters["lm_iterations:pose_ba"] >= 1
+    assert not any(k.startswith("host_reads:") or k.startswith("pass1_") and k.endswith("_s") for k in counters)
+
+
 def test_resume_from_checkpoint(runs, clip):
     frames, corners = clip
     again = torch_process(

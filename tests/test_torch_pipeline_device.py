@@ -86,6 +86,18 @@ def test_stages_recorded(runs):
     assert m["counters"]["keyframes_selected"] >= m["counters"]["keyframes"]
 
 
+def test_device_pass1_spans(runs):
+    """The device pass 1's parts are children of ``pass1_keyframes``: the
+    decimation, the upload and CLAHE, the hunt for the first board, the
+    scan, its flags' read and the keyframes kept; the board detection
+    stays a stage of its own."""
+    timings = runs["torch"].metrics["timings"]
+    parts = {k.split("/", 1)[1] for k in timings if k.startswith("pass1_keyframes/")}
+    assert {"decim", "upload", "board_hunt", "scan", "flags_read", "retain"} <= parts
+    assert sum(timings[f"pass1_keyframes/{p}"] for p in parts if "/" not in p) <= timings["pass1_keyframes"]
+    assert "board_detect" in timings and "pass2_orb/describe" in timings
+
+
 def test_resume_from_checkpoint(runs, clip):
     frames, _ = clip
     again = torch_process(frames, config=CONFIG, device="cpu", checkpoint_dir=str(runs["out"] / "ckpt"))
