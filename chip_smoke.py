@@ -69,8 +69,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      shapes (1024 hypotheses at 128 points, 2048 at 8192 slots with ~421
      in the mask, 2048 at 4096 with ~149) and at two edges (a NaN in a
      slot out of the mask; zero-t candidates); each dispatch point must
-     give bit for bit what one launch of its wrapper gives; then render
-     the headline clip (300 frames, 1080p) on the card;
+     give bit for bit what one launch of its wrapper gives;
+  3f. hold the odometry's scale-step kernel (``csrc/scale_step.cu``) against
+     its plain version (``odometry.scale_step_reference``) in float64 at
+     ``tools/scale_step_bench.step_case``'s seeded steps and edges (129,
+     1500 and 9000 slots, 9, 8 and 7 qualifying slots, a reseed, no
+     inliers, bad depths, a chained rotation near pi): scale, pose and
+     depths within 1e-9, the NaN pattern, the inlier count and the held
+     flag exactly (``tools/scale_step_bench.TOLERANCE``); then render the
+     headline clip (300 frames, 1080p) on the card;
   4. run ``process`` on the clip with ``headline_config()`` and the
      renderer's board corners twice, with the launch counts reset just
      before; check the
@@ -149,14 +156,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      as in 4, then the same two through ``process`` one after the
      other; seconds and rmse of both are printed;
   9. odometry: ``chain_poses`` over the board-free clip of phase 6 with the
-     scene's K (launch counts reset just before), one ``lk_track`` and one
-     ``refine_relpose`` launch per step, and one of each of 3e's kernels
-     (two of the homography's): more than 50 points
+     scene's K (launch counts reset just before), one ``lk_track``, one
+     ``refine_relpose`` and one ``scale_step`` launch per step, and one of
+     each of 3e's kernels (two of the homography's): more than 50 points
      tracked in every step and a chained-rotation error under 6 degrees
      over the first 10 steps (the JAX package's test bound); the drift over
      the clip is printed; its first 20 steps once more with the plain
      relative pose (refinement, hypotheses, vote, scores) on the card, and
-     each step's rotation difference against the kernel run printed; then
+     each step's rotation difference against the kernel run printed; its
+     first 20 steps once more with each scale step's arguments recorded,
+     and the scale-step kernel held to its plain version at each, in
+     float32 as recorded (``TOLERANCE_F32``) and in float64 as in 3f, and
+     timed at step 1 (128 slots); then
      ``two_view.reconstruct_two_view`` on two of its frames (launch counts
      reset just before): one ``lk_track``, one ``refine_relpose`` and one
      of each of 3e's kernels (two of the homography's), at least 50
@@ -209,11 +220,15 @@ iterations this run's points ran and where they sampled
 (``tools/klt_bench``); for the refinement its operations on the points in
 the mask at the float32 rate, for the relative pose's other kernels
 their solves and consensus tests at the float32 rate
-(``tools/relpose_bench.hyp_work``). The last two
+(``tools/relpose_bench.hyp_work``), for the scale step its design, SVD,
+depths and composition at the float32 rate (``tools/scale_step_bench.
+work``) against the plain version's eager triangulation, reads and numpy
+on the same card. The last two
 lines are a JSON record of the kernels (launches summed over all paths;
 CLAHE's times, bound and share at the known path's keyframes,
 Lucas-Kanade's at the scan's input, the relative pose's kernels at the
-odometry's first step (the homography kernel's two launches summed), the
+odometry's first step (the homography kernel's two launches summed) as
+the scale step's are, the
 geometry kernels' at the known path's own calls: its first
 calibration LM run, its pose stage's PnP, its global BA's first Jacobians,
 bounds from ``tools/geometry_bench``'s counts) and the device line.
@@ -255,6 +270,7 @@ from meatmodeler_tpu_torch.pipeline import process
 from meatmodeler_tpu_torch.solvers import bundle_adjust, bundle_adjust_cuda
 from meatmodeler_tpu_torch.tools import geometry_bench as gb
 from meatmodeler_tpu_torch.tools import ideal_visual_hull, volume_validation
+from meatmodeler_tpu_torch.tools import scale_step_bench as ssb
 from meatmodeler_tpu_torch.tools.clahe_bench import time_kernels
 from meatmodeler_tpu_torch.tools.klt_bench import (
     describe,
@@ -346,6 +362,8 @@ KERNELS = {
     "homography_hypotheses": ("meatmodeler_tpu/geometry/ransac.py:665", "meatmodeler_tpu_torch/csrc/relpose_hyp.cu"),
     "recover_pose": ("meatmodeler_tpu/geometry/ransac.py:329", "meatmodeler_tpu_torch/csrc/relpose_hyp.cu"),
     "score_candidates": ("meatmodeler_tpu/geometry/ransac.py:544", "meatmodeler_tpu_torch/csrc/relpose_hyp.cu"),
+    # The odometry's scale step: jitted XLA (triangulate_pairs) and numpy.
+    "scale_step": ("meatmodeler_tpu/odometry.py:129", "meatmodeler_tpu_torch/csrc/scale_step.cu"),
 }
 HYP = ("essential_hypotheses", "homography_hypotheses", "recover_pose", "score_candidates")
 GEOMETRY = ("obs_jacobians", "pnp_refine", "calib_lm")
@@ -368,6 +386,8 @@ CLAHE = ("clahe_lut", "clahe_apply")
 LK_CASES = ("scan", "odometry", "two_view", "flat", "masked", "scan_edges", "two_view_edges", "ragged", "deep_edges")
 RELPOSE_TOL = 1e-4  # on the candidates float32 rounding does not decide
 ODOMETRY_PLAIN_STEPS = 20
+# Kernels no path but the odometry's launches.
+ODOMETRY_ONLY = ("scale_step",)
 
 
 LIBRARIES = (clahe_cuda, klt_cuda, ransac_cuda, ransac_hyp_cuda, bundle_adjust_cuda, pnp_cuda, calibration_cuda)
@@ -1184,9 +1204,9 @@ def run_pipelined(scene, clips, corners, err):
 
 
 def run_odometry(scene, frames, poses):
-    """Phase 9a: ``chain_poses`` over the board-free clip, one ``lk_track``
-    and one ``refine_relpose`` launch per step. Returns (its launches,
-    its result)."""
+    """Phase 9a: ``chain_poses`` over the board-free clip, one ``lk_track``,
+    one ``refine_relpose`` and one ``scale_step`` launch per step. Returns
+    (its launches, its result)."""
     reset_counts()
     t0 = time.perf_counter()
     res = chain_poses(frames, scene.intrinsics, device="cuda")
@@ -1209,6 +1229,8 @@ def run_odometry(scene, frames, poses):
         raise AssertionError(f"lk_track did not launch once per odometry step: {launches}")
     if launches["refine_relpose"] != len(frames) - 1:
         raise AssertionError(f"refine_relpose did not launch once per odometry step: {launches}")
+    if launches["scale_step"] != len(frames) - 1:
+        raise AssertionError(f"scale_step did not launch once per odometry step: {launches}")
     check_hyp_launches("odometry", launches, len(frames) - 1)
     return launches, res
 
@@ -1218,13 +1240,16 @@ def odometry_plain(scene, frames, res):
     refinement on the card; prints each step's rotation difference (deg)
     against the kernel run. The draws are the same (one seeded generator
     per run), so only the refinement's rounding differs."""
-    before = (ransac_cuda.LAUNCHES["refine_relpose"], dict(ransac_hyp_cuda.LAUNCHES))
+    def relpose_launches():
+        return ransac_cuda.LAUNCHES["refine_relpose"], {k: ransac_hyp_cuda.LAUNCHES[k] for k in HYP}
+
+    before = relpose_launches()
     t0 = time.perf_counter()
     with plain_relpose():
         plain = chain_poses(frames[: ODOMETRY_PLAIN_STEPS + 1], scene.intrinsics, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if (ransac_cuda.LAUNCHES["refine_relpose"], ransac_hyp_cuda.LAUNCHES) != before:
+    if relpose_launches() != before:
         raise AssertionError("the plain run launched a relative-pose kernel")
 
     def rot(poses):
@@ -1237,6 +1262,41 @@ def odometry_plain(scene, frames, res):
           f"rotation difference against the kernel run per step (deg) {[round(float(d), 6) for d in diff]}, max "
           f"{float(diff.max()):.6f}; inliers per step kernel {res.num_inliers[1:ODOMETRY_PLAIN_STEPS + 1].tolist()} "
           f"plain {plain.num_inliers[1:].tolist()}")
+
+
+def compare_scale_step(cases, err, tolerance=ssb.TOLERANCE):
+    """The scale step's kernel against its plain version at each (label,
+    arguments on the card, ``tools/scale_step_bench.ARG_NAMES``): pose,
+    scale, depths, inlier count and held flag within ``tolerance``
+    (``tools/scale_step_bench.agreement``); raises on disagreement, folds
+    the largest gap (scale and depths relative, pose absolute) into
+    ``err``."""
+    for label, case in cases:
+        got = ssb.run_kernel(case)
+        a = ssb.agreement(got, ssb.run_plain({k: v.cpu() for k, v in case.items()}), tolerance)
+        print(f"kernel check scale_step {label} {str(case['pts1'].dtype)[6:]} {case['pts1'].shape[0]} slots: "
+              f"{json.dumps(a)}")
+        if not a["ok"]:
+            raise AssertionError(f"scale_step disagrees with its plain version at {label}: {a}")
+        err["scale_step"] = max(err["scale_step"], a["scale"], a["pose"], a["depth"])
+
+
+def scale_step_at_odometry(scene, frames, err):
+    """Phase 9a'': the odometry's first ``ODOMETRY_PLAIN_STEPS`` steps once
+    more, each scale step's arguments recorded (the draws are seeded, so
+    they are phase 9a's): the kernel against its plain version at each, in
+    float32 as recorded (``TOLERANCE_F32``) and in float64 (``TOLERANCE``),
+    and timed at step 1. Returns the time's row."""
+    _, steps = ssb.record_steps(frames[: ODOMETRY_PLAIN_STEPS + 1], scene.intrinsics, device="cuda")
+    for dtype, tolerance in ((torch.float32, ssb.TOLERANCE_F32), (torch.float64, ssb.TOLERANCE)):
+        compare_scale_step([(f"odometry step {i + 1}", {k: v if v.dtype == torch.bool else v.to(dtype)
+                                                         for k, v in s.items()}) for i, s in enumerate(steps)],
+                           err, tolerance)
+    row = ssb.time_step(steps[0])
+    print(f"time odometry step 1 scale_step ({steps[0]['pts1'].shape[0]} slots): {row['ms']:.6f} ms (plain "
+          f"{row['plain_ms']:.6f} ms), {row['flops']:.0f} operations, {row['bytes']:.0f} B, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']}), share of bound {row['share']:.3g}")
+    return dict(row, at=[steps[0]["pts1"].shape[0]])
 
 
 def run_two_view(scene, frames):
@@ -1470,6 +1530,9 @@ def main() -> int:
     # kernels against their plain versions at the paths' shapes and edges.
     compare_hyp([(label, hyp_case(label, device=dev)) for label in (*(c[0] for c in HYP_CALLERS), *HYP_EDGES)], err,
                 seeded=True)
+    # Phase 3f: the odometry's scale-step kernel against its plain version
+    # on seeded steps and their edges, float64.
+    compare_scale_step([(label, ssb.step_case(label, device=dev)) for label in ssb.CASES], err)
 
     t0 = time.perf_counter()
     scene, frames, corners = headline_clip(dev)
@@ -1555,7 +1618,7 @@ def main() -> int:
     compare_hyp([("fallback bootstrap", hyp_first)], err)
     del calls, refines, fallback_lk, hyp_first
     check_geometry("fallback", launches_f, geometry_calls, board=False)
-    if min(launches_f[k] for k in KERNELS if k not in ("pnp_refine", "calib_lm")) <= 0:
+    if min(launches_f[k] for k in KERNELS if k not in ("pnp_refine", "calib_lm", *ODOMETRY_ONLY)) <= 0:
         raise AssertionError(f"a kernel of the fallback path never launched: {launches_f}")
     add_counts(launches, launches_f)
     compare_first_jacobians("fallback", CHAIN_BA, ba_first, err)
@@ -1593,6 +1656,7 @@ def main() -> int:
     odometry_estimate = estimates[0]
     del refines, estimates
     odometry_plain(mscene, mframes, odo)
+    scale_row = scale_step_at_odometry(mscene, mframes, err)
     with recording(klt, "lucas_kanade") as calls, recording(ransac, "refine_relative_pose") as refines, \
             geometry_counts() as geometry_calls, first_hyp_calls() as two_view_hyp:
         launches_t = run_two_view(mscene, mframes)
@@ -1650,6 +1714,7 @@ def main() -> int:
     rows["homography_hypotheses"] = {key: sum(r[key] for r in both) for key in ("ms", "plain_ms", "bound_ms")}
     rows["homography_hypotheses"].update(bound_by=both[0]["bound_by"], at=[both[0]["items"], both[0]["points"]],
                                          share=rows["homography_hypotheses"]["bound_ms"] / rows["homography_hypotheses"]["ms"])
+    rows["scale_step"] = scale_row
     record = {
         "kernels": [
             {
@@ -1668,7 +1733,8 @@ def main() -> int:
                 # LK, a robust LM refinement, projection Jacobians, a
                 # Gauss-Newton PnP, an LM calibration, batched 8-point or
                 # 4-point RANSAC hypotheses with their consensus, a
-                # cheirality vote or a triangulated-reprojection score.
+                # cheirality vote, a triangulated-reprojection score or a
+                # triangulated median-ratio scale step.
                 "library_ms": None,
                 "at": rows[name]["at"],
             }

@@ -1,5 +1,6 @@
 """Bind and launch the relative pose's hypothesis, cheirality and scoring
-CUDA kernels (``csrc/relpose_hyp.cu``).
+CUDA kernels (``csrc/relpose_hyp.cu``) and the odometry's scale step
+(``csrc/scale_step.cu``).
 
 One ``ransac.estimate_relative_pose`` call on the card launches each of
 them once, the homography kernel twice (its hypotheses, then its polish and
@@ -12,6 +13,13 @@ with ``-fmad=false`` so that each product and sum rounds as the plain
 versions' do. Float32 is the path's type; float64 is there to hold the
 kernels to their plain versions. Nothing is built at import; a failed build
 or launch raises. ``LAUNCHES`` counts each kernel's launches.
+
+``scale_step`` is one step of ``odometry.chain_poses``' scale chaining in
+one launch, with no host read: it takes what ``odometry.
+scale_step_reference`` takes, where it already lies on the card, and writes
+the chained pose, the scale, the inlier count and whether the scale was
+held into the caller's buffers, and the new depths over the previous ones.
+Its source is built into the same library, so one build serves both.
 """
 
 from __future__ import annotations
@@ -31,11 +39,13 @@ __all__ = [
     "homography_polish",
     "recover_pose",
     "reset_launches",
+    "scale_step",
     "score_candidates",
 ]
 
 # Launch counts, incremented only where a kernel is launched.
-LAUNCHES = {"essential_hypotheses": 0, "homography_hypotheses": 0, "recover_pose": 0, "score_candidates": 0}
+LAUNCHES = {"essential_hypotheses": 0, "homography_hypotheses": 0, "recover_pose": 0, "score_candidates": 0,
+            "scale_step": 0}
 # Each product and sum rounds on its own, as the plain versions' do.
 NVCC_EXTRA = ("-fmad=false",)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -51,6 +61,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         "homography_polish": [p] * 6 + [d, i, i, p, p, p, p, p, p],
         "recover_pose": [p] * 4 + [ll, p, p, i, i, p, p, p, p],
         "score_candidates": [p] * 7 + [i, i] + [p] * 8,
+        "scale_step": [p] * 8 + [i] + [p] * 6,
     }
     for name, argtypes in args.items():
         for suffix in _SUFFIX.values():
@@ -59,9 +70,11 @@ def _bind(lib: ctypes.CDLL) -> None:
             fn.restype = i
     lib.relpose_hyp_scratch_bytes.argtypes = [i, i, i, i]
     lib.relpose_hyp_scratch_bytes.restype = ctypes.c_size_t
+    lib.scale_step_scratch_bytes.argtypes = [i, i]
+    lib.scale_step_scratch_bytes.restype = ctypes.c_size_t
 
 
-_LIB = cuda_build.CudaLibrary("relpose_hyp", _bind, extra_flags=NVCC_EXTRA)
+_LIB = cuda_build.CudaLibrary("relpose_hyp", _bind, extra_flags=NVCC_EXTRA, more=("scale_step",))
 SOURCE, LIBRARY = _LIB.source, _LIB.path
 
 
@@ -273,3 +286,37 @@ def score_candidates(
             *_ptrs([good, msac, rvd, tvd, e, res, inl]))
     cuda_build.count(LAUNCHES, "score_candidates")
     return good, msac, rvd, tvd, e, res, inl
+
+
+def scale_step(
+    pts1: torch.Tensor, pts2: torch.Tensor, inliers: torch.Tensor, rvec: torch.Tensor, tvec: torch.Tensor,
+    intrinsics: torch.Tensor, depth: torch.Tensor, prev_pose: torch.Tensor, prev_scale: torch.Tensor,
+    pose: torch.Tensor, scale: torch.Tensor, counts: torch.Tensor,
+) -> None:
+    """One scale step in one launch: (N, 2) pixels ``pts1`` of the previous
+    frame and ``pts2`` of this one, a bool (N,) ``inliers``, the step's
+    ``rvec`` and unit ``tvec`` (3,), a (3, 3) ``intrinsics``, the previous
+    frame's ``prev_pose`` (6,) and the previous step's 0-d ``prev_scale``.
+    ``depth`` (N,) holds the previous step's depths (NaN = none) and gets
+    this step's; ``pose`` (6,) and the 0-d ``scale`` get the chained pose and
+    the scale, the int32 ``counts`` (2,) the inlier count and 1 where fewer
+    than 8 slots gave a ratio and the scale was held. The four outputs may
+    be views (the chain's record rows) but must be contiguous."""
+    n = pts1.shape[0] if pts1.ndim == 2 else -1
+    dtype = _dtype("scale_step", pts1)
+    device = _check("scale_step", [
+        ("pts1", pts1, (n, 2), dtype), ("pts2", pts2, (n, 2), dtype), ("inliers", inliers, (n,), torch.bool),
+        ("rvec", rvec, (3,), dtype), ("tvec", tvec, (3,), dtype), ("intrinsics", intrinsics, (3, 3), dtype),
+        ("depth", depth, (n,), dtype), ("prev_pose", prev_pose, (6,), dtype), ("prev_scale", prev_scale, (), dtype),
+        ("pose", pose, (6,), dtype), ("scale", scale, (), dtype), ("counts", counts, (2,), torch.int32),
+    ])
+    for label, t in (("depth", depth), ("pose", pose), ("counts", counts)):
+        if not t.is_contiguous():
+            raise ValueError(f"scale_step: {label} must be contiguous (it is written in place)")
+    with torch.cuda.device(device):
+        nbytes = build().scale_step_scratch_bytes(int(dtype == torch.float64), n)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+    ins = [t.contiguous() for t in (pts1, pts2, inliers, rvec, tvec, intrinsics, prev_pose, prev_scale)]
+    _launch("scale_step", f"scale_step_{_SUFFIX[dtype]}", device, *_ptrs(ins), n,
+            *_ptrs([scratch, depth, pose, scale, counts]))
+    cuda_build.count(LAUNCHES, "scale_step")

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/meatmodeler_tpu_torch/`` beside the package, and loaded with
-``ctypes`` (plain C interface: pointers and the stream as ``c_void_p``).
-A library is rebuilt when it is missing or older than its source or any
-shared header (``csrc/*.cuh``); a failed build raises with nvcc's output.
+Each library is compiled from its sources with ``nvcc`` for ``sm_90a`` at
+first use into ``build/meatmodeler_tpu_torch/`` beside the package, and
+loaded with ``ctypes`` (plain C interface: pointers and the stream as
+``c_void_p``). A library is rebuilt when it is missing or older than one of
+its sources or any shared header (``csrc/*.cuh``); a failed build raises
+with nvcc's output.
 Nothing here runs at import.
 
 The wrappers' launch counters (one plain dict per module) share one lock:
@@ -71,11 +72,16 @@ def compile_source(source: Path, out: Path, extra: Sequence[str] = ()) -> str:
 
 
 class CudaLibrary:
-    """``csrc/<name>.cu`` built into ``build/.../lib<name>.so`` and loaded
-    once; ``bind(lib)`` sets the C entries' argument types."""
+    """``csrc/<name>.cu`` (and ``csrc/<more>.cu`` for each of ``more``)
+    built into ``build/.../lib<name>.so`` and loaded once; ``bind(lib)`` sets
+    the C entries' argument types."""
 
-    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None], extra_flags: Sequence[str] = ()):
+    def __init__(
+        self, name: str, bind: Callable[[ctypes.CDLL], None], extra_flags: Sequence[str] = (),
+        more: Sequence[str] = (),
+    ):
         self.source = CSRC / f"{name}.cu"
+        self.sources = [self.source, *(CSRC / f"{m}.cu" for m in more)]
         self.path = BUILD_DIR / f"lib{name}.so"
         self._bind = bind
         self._extra = list(extra_flags)
@@ -87,17 +93,18 @@ class CudaLibrary:
         return self._lib is not None
 
     def load(self) -> ctypes.CDLL:
-        """Compile when the library is missing or older than its source or
-        a shared header, then load it; raises on a failed build."""
+        """Compile when the library is missing or older than a source or a
+        shared header, then load it; raises on a failed build."""
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            newest = max(src.stat().st_mtime for src in (self.source, *CSRC.glob("*.cuh")))
+            newest = max(src.stat().st_mtime for src in (*self.sources, *CSRC.glob("*.cuh")))
             if not self.path.exists() or self.path.stat().st_mtime < newest:
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = self.path.with_suffix(f".tmp{os.getpid()}.so")
                 try:
-                    compile_source(self.source, tmp, self._extra)
+                    # The further sources are linked in as further inputs of nvcc.
+                    compile_source(self.source, tmp, [*self._extra, *map(str, self.sources[1:])])
                     os.replace(tmp, self.path)
                 finally:
                     tmp.unlink(missing_ok=True)

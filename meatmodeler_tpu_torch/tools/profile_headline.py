@@ -88,6 +88,7 @@ from meatmodeler_tpu_torch.config import (
 )
 from meatmodeler_tpu_torch.geometry import calibration_cuda, pnp_cuda, projection, ransac, ransac_cuda, so3, triangulation
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+from meatmodeler_tpu_torch import odometry as odometry_module
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe, clahe_cuda, features, klt, klt_cuda
 from meatmodeler_tpu_torch.parallel import sharded
@@ -281,12 +282,14 @@ def count_host_syncs(run):
 
 # The calls that make up one odometry step, timed in its synced run; the
 # ransac calls after ``estimate_relative_pose`` run inside it (their
-# seconds are part of its own).
+# seconds are part of its own), and so does ``triangulate_pairs`` inside
+# ``scale_step`` (CPU tensors only: on the card the step is one kernel).
 ODOMETRY_STAGES = (
     (clahe, "clahe"),
     (klt, "build_pyramid"),
     (klt, "lucas_kanade"),
     (ransac, "estimate_relative_pose"),
+    (odometry_module, "scale_step"),
     (triangulation, "triangulate_pairs"),
     (features, "good_features"),
     (ransac, "essential_hypotheses"),

@@ -517,7 +517,8 @@ def test_solve_ba_batch_on_cuda_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_odometry_steps_on_cuda_match_cpu(cuda, cpu_draws):
     """Three steps of ``odometry.chain_poses`` on the card (CLAHE through
-    the kernels, LK, LO-RANSAC with its refinement kernel, triangulation)
+    the kernels, LK, LO-RANSAC with its refinement kernel, the scale step's
+    kernel, one launch a step)
     against the CPU with the same hypotheses: track counts within 2 (LK's
     eps freeze, see ``test_detector_path_ops_on_cuda_match_cpu``),
     rotations within 1e-2
@@ -526,7 +527,7 @@ def test_odometry_steps_on_cuda_match_cpu(cuda, cpu_draws):
     estimator's own noise (6.9e-3 rad on a 17-degree step, measured on an
     H100); both runs also follow the renderer's orbit within the JAX
     package's test bound, 6 degrees."""
-    from meatmodeler_tpu_torch.geometry import ransac_cuda, so3
+    from meatmodeler_tpu_torch.geometry import ransac_cuda, ransac_hyp_cuda, so3
     from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
     from meatmodeler_tpu_torch.odometry import chain_poses
     from meatmodeler_tpu_torch.ops import clahe_cuda, klt_cuda
@@ -538,7 +539,9 @@ def test_odometry_steps_on_cuda_match_cpu(cuda, cpu_draws):
     before = dict(clahe_cuda.LAUNCHES)
     lk_before = klt_cuda.LAUNCHES["lk_track"]
     refine_before = ransac_cuda.LAUNCHES["refine_relpose"]
+    scale_before = ransac_hyp_cuda.LAUNCHES["scale_step"]
     res_g = chain_poses(frames, scene.intrinsics, device="cuda")
+    assert ransac_hyp_cuda.LAUNCHES["scale_step"] == scale_before + 3  # one per step
     assert clahe_cuda.LAUNCHES["clahe_lut"] == before["clahe_lut"] + 4
     assert klt_cuda.LAUNCHES["lk_track"] == lk_before + 3  # one launch per step
     # One per step: the essential candidates and the homography's together.
@@ -1038,7 +1041,7 @@ def test_estimate_relative_pose_launches_each_kernel_once_without_syncs(cuda):
     assert not [w for w in caught if "synchroniz" in str(w.message)]
     launched = {name: n - before[0][name] for name, n in ransac_hyp_cuda.LAUNCHES.items()}
     assert launched == {"essential_hypotheses": 1, "homography_hypotheses": 2, "recover_pose": 1,
-                        "score_candidates": 1}
+                        "score_candidates": 1, "scale_step": 0}
     assert ransac_cuda.LAUNCHES["refine_relpose"] == before[1] + 1
     assert int(res.num_inliers) > 250 and torch.isfinite(rv).all()
 
@@ -1131,3 +1134,78 @@ def test_host_reads_all_fall_inside_spans(cuda, path, monkeypatch):
     iterations = {k: v for k, v in counters.items() if k.startswith("lm_iterations:")}
     assert iterations == {k: v for k, v in plain.metrics["counters"].items() if k.startswith("lm_iterations:")}
     assert total > 0 and sum(reads.values()) == total
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", [
+    "base", "slots_129", "slots_1500", "slots_9000", "ratios_9", "ratios_8", "ratios_7", "reseeded", "no_inliers",
+    "bad_depths", "near_pi",
+])
+def test_scale_step_kernel_matches_plain_version(cuda, label):
+    """``csrc/scale_step.cu`` against ``odometry.scale_step_reference`` in
+    float64 at ``scale_step_bench.step_case``'s cases (129 slots, 1500
+    beyond one block, 9000 with the sort in global memory, 9/8/7 qualifying
+    slots, a reseed, no inliers, bad depths, a chained rotation near pi):
+    the scale, the pose and the depths within 1e-9 (relative for the scale
+    and the depths), the NaN pattern, the inlier count and the held flag
+    exactly (``scale_step_bench.TOLERANCE``); one launch."""
+    from meatmodeler_tpu_torch.geometry import ransac_hyp_cuda
+    from meatmodeler_tpu_torch.tools import scale_step_bench as sb
+
+    assert sb.CASES.count(label) == 1
+    case = sb.step_case(label, device=cuda)
+    before = ransac_hyp_cuda.LAUNCHES["scale_step"]
+    got = sb.run_kernel(case)
+    assert ransac_hyp_cuda.LAUNCHES["scale_step"] == before + 1
+    a = sb.agreement(got, sb.run_plain({k: v.cpu() for k, v in case.items()}))
+    assert a["ok"], a
+
+
+@pytest.mark.gpu
+def test_scale_step_kernel_matches_plain_version_at_odometry_steps(cuda):
+    """The kernel at every step a ``chain_poses`` on the card recorded (one
+    launch a step) against the plain version, each step's arguments in
+    float64 (``scale_step_bench.TOLERANCE``) and as recorded, in float32,
+    the path's type (``scale_step_bench.TOLERANCE_F32``)."""
+    from meatmodeler_tpu_torch.geometry import ransac_hyp_cuda
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+    from meatmodeler_tpu_torch.tools import scale_step_bench as sb
+
+    scene = TurntableScene(image_size=(400, 300), focal=420.0, noise_sigma=0.5)
+    frames, _, _ = render_sequence(scene, 10, seed=3)
+    before = ransac_hyp_cuda.LAUNCHES["scale_step"]
+    _, steps = sb.record_steps(frames, scene.intrinsics, device="cuda")
+    assert len(steps) == 9 and ransac_hyp_cuda.LAUNCHES["scale_step"] == before + 9
+    assert all(s["pts1"].dtype == torch.float32 for s in steps)
+    for t, s in enumerate(steps, start=1):
+        for dtype, tol in ((torch.float64, sb.TOLERANCE), (torch.float32, sb.TOLERANCE_F32)):
+            case = {k: (v if v.dtype == torch.bool else v.to(dtype)) for k, v in s.items()}
+            a = sb.agreement(sb.run_kernel(case), sb.run_plain({k: v.cpu() for k, v in case.items()}), tol)
+            assert a["ok"], (t, dtype, a)
+
+
+@pytest.mark.gpu
+def test_odometry_short_clip_reads_the_host_twice_a_step(cuda, monkeypatch):
+    """A short ``chain_poses`` under ``MEATMODELER_SYNC_STAGES``: the scale
+    step reads nothing a step (``host_reads:odometry_scale`` is the record's
+    one read after the last step), the relative pose nothing beyond K's
+    upload, and the clip at most 2 a step (a frame's upload and LK's
+    survivor count) besides frame 0's upload, K's upload, the first seed's
+    and the record's read."""
+    from meatmodeler_tpu_torch.geometry import ransac_hyp_cuda
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+    from meatmodeler_tpu_torch.odometry import chain_poses
+
+    scene = TurntableScene(image_size=(400, 300), focal=420.0, noise_sigma=1.0)
+    frames, _, _ = render_sequence(scene, 8, seed=0)
+    chain_poses(frames, scene.intrinsics, device="cuda")  # warm
+    monkeypatch.setenv("MEATMODELER_SYNC_STAGES", "1")
+    before = ransac_hyp_cuda.LAUNCHES["scale_step"]
+    res = chain_poses(frames, scene.intrinsics, device="cuda")
+    steps = len(frames) - 1
+    assert ransac_hyp_cuda.LAUNCHES["scale_step"] == before + steps
+    reads = {k[len("host_reads:"):]: v for k, v in res.metrics["counters"].items() if k.startswith("host_reads:")}
+    print(f"host reads of a {len(frames)}-frame clip by span: {reads}")
+    assert sum(v for k, v in reads.items() if k.startswith("odometry_scale")) <= 1, reads
+    assert reads.get("odometry_relpose", 0) <= 1, reads
+    assert sum(reads.values()) <= 2 * steps + 4, reads

@@ -226,7 +226,8 @@ def test_chain_poses_stages_on_the_profiler(odometry_clip, unsynced):
     names = {e.name for e in prof.events()}
     assert ODOMETRY_STAGES <= names
     assert set(res.metrics) == {"timings", "counters"}
-    assert set(res.metrics["timings"]) == ODOMETRY_STAGES
+    # The stages and the scale step's child span: the chain's one read.
+    assert set(res.metrics["timings"]) == ODOMETRY_STAGES | {"odometry_scale/result"}
     assert all(v > 0.0 for v in res.metrics["timings"].values())
     assert res.metrics is res[-1] and len(res.poses) == len(frames)
 
