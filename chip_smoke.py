@@ -1143,7 +1143,7 @@ def run_batch(scene, clips):
         rmse.append(np.array([r.reprojection_rmse for r in results]))
         on = "no mesh" if mesh is None else f"mesh {mesh.shape} over {[str(r[0]) for r in mesh.devices]}"
         print(f"[batch] run {run} ({on}): wall {wall:.3f} s for {len(clips)} clips ({n_frames / wall:.2f} fps "
-              f"aggregate), batch solve {results[0].metrics['counters']['batch_solve_s']:.4f} s, launches {launched}")
+              f"aggregate), batch solve {results[0].metrics['batch']['timings']['batch_solve']:.4f} s, launches {launched}")
         for i, res in enumerate(results):
             c = res.metrics["counters"]
             vol_err = check_clip(res, scene)

@@ -142,7 +142,8 @@ def main(argv=None) -> int:
                 "volume_carved": r.volume_carved,
                 "reprojection_rmse": r.reprojection_rmse,
                 "ply": r.ply_path,
-                **r.metrics,
+                "timings": r.metrics["timings"],
+                "counters": r.metrics["counters"],
             }
             for v, r in zip(args.video, results)
         ]

@@ -9,6 +9,16 @@ solve_ba_batch``, the reference's ``vmap(solve_ba)``), or, given a
 ``mesh``, split over its GPUs (``sharded.solve_ba_batch``); then volume and
 PLY per video.
 
+Besides each video's own stages, a batch has three spans of its own, on a
+``Metrics`` of the batch: ``batch_prepass``, ``batch_pool`` (the two
+workers' pass 2 and geometry) and ``batch_solve`` (padding, stacking, the
+batched LM with its ``linearize``/``solve``/``decide`` spans and its reads
+of the lanes' RMSE and iterations). Their timings and counters
+(``lm_iterations:batch_solve``, the LM's iterations;
+``lane_iterations:batch_solve``, the iterations summed over the lanes each
+ran; ``lanes:batch_solve``) are reported once a call: the same dict under
+the key ``batch`` of every result's ``metrics``.
+
 What the reference adds for its TPU link is left out: the compile warm-up
 thread, the pass-2 prefetch, the packed single-buffer fetches, the
 1024-point and 8-keyframe volume padding, and the debug marks.
@@ -17,7 +27,6 @@ thread, the pass-2 prefetch, the packed single-buffer fetches, the
 from __future__ import annotations
 
 import dataclasses
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
@@ -91,9 +100,11 @@ def process_batch(
         # host from frame 0 whatever ``pass1_backend`` says.)
         _check_supported(dataclasses.replace(config, pass1_backend="device"), None)
     metrics_list = [Metrics() for _ in range(n)]
+    batch_metrics = Metrics()
     load_cuda_linalg(device)
     with profile_run(), full_fp32(), torch.no_grad():
-        prepped = _batch_prepass(videos, config, known_corners, metrics_list, device)
+        with batch_metrics.stage("batch_prepass"):
+            prepped = _batch_prepass(videos, config, known_corners, metrics_list, device)
 
         def reconstruct(i):
             with torch.no_grad():  # grad mode is per thread
@@ -102,18 +113,24 @@ def process_batch(
                         config, metrics_list[i], StageCheckpointer(None), markerless=False, device=device,
                         **prepped[i],
                     )
-                _check_supported(config, known_corners[i])
+                cfg = config
+                if known_corners[i] is None and config.pass1_backend == "host":
+                    # The host scan's board hunt needs cv2: a clip the
+                    # prepass left (fewer than 3 board keyframes) hunts on
+                    # the device.
+                    cfg = dataclasses.replace(config, pass1_backend="device")
+                _check_supported(cfg, known_corners[i])
                 return _reconstruct_to_ba(
-                    videos[i], config, known_corners[i], metrics_list[i], StageCheckpointer(None), device
+                    videos[i], cfg, known_corners[i], metrics_list[i], StageCheckpointer(None), device
                 )
 
         # Two workers overlap one video's host work with another's device
         # work. Both queue on the device's one default stream, in the order
         # the host issues them, so a tensor handed between them is ready
         # for whatever reads it next.
-        with ThreadPoolExecutor(max_workers=min(2, max(n, 1))) as pool:
+        with batch_metrics.stage("batch_pool"), ThreadPoolExecutor(max_workers=min(2, max(n, 1))) as pool:
             pres = list(pool.map(reconstruct, range(n)))
-        return _solve_and_finish_batch(pres, config, metrics_list, paths, mesh)
+        return _solve_and_finish_batch(pres, config, metrics_list, batch_metrics, paths, mesh)
 
 
 def _batch_prepass(videos, config, known_corners, metrics_list, device):
@@ -199,19 +216,14 @@ def _pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((n - x.shape[0],) + tuple(x.shape[1:]))])
 
 
-def _solve_and_finish_batch(pres, config, metrics_list, paths, mesh=None) -> List[ProcessResult]:
-    """Pad every video's BA problem to the batch's largest (F, P, N), solve
-    them as one batch (over ``mesh``'s data devices when given), then volume
-    and PLY per video."""
-    f_max = max(p.ext_refined.shape[0] for p in pres)
-    p_max = max(p.points.shape[0] for p in pres)
-    o_max = max(p.obs.shape[0] for p in pres)
-    device = pres[0].points.device
-    # The data axis must divide the batch: pad with copies of the last
-    # problem.
-    n_solve = len(pres) if mesh is None else -(-len(pres) // mesh.shape["data"]) * mesh.shape["data"]
-    lanes = list(pres) + [pres[-1]] * (n_solve - len(pres))
-    problem = bundle_adjust.BAProblem(*(
+def _stacked_problem(lanes) -> bundle_adjust.BAProblem:
+    """The lanes' BA problems padded to their largest (F, P, N) and stacked
+    on a leading lane axis, the padded observations masked."""
+    f_max = max(p.ext_refined.shape[0] for p in lanes)
+    p_max = max(p.points.shape[0] for p in lanes)
+    o_max = max(p.obs.shape[0] for p in lanes)
+    device = lanes[0].points.device
+    return bundle_adjust.BAProblem(*(
         torch.stack(fields) for fields in zip(*(
             (
                 _pad_to(projection.params_from_extrinsics(p.ext_refined), f_max),
@@ -226,14 +238,28 @@ def _solve_and_finish_batch(pres, config, metrics_list, paths, mesh=None) -> Lis
             for p in lanes
         ))
     ))
-    t0 = time.perf_counter()
-    if mesh is None:
-        result = bundle_adjust.solve_ba_batch(problem, config=config.solver)
-    else:
-        result = sharded.solve_ba_batch(mesh, problem, config=config.solver)
-    rmse_all = result.rmse.cpu().numpy()
-    iters_all = result.iterations.cpu().numpy()
-    solve_s = time.perf_counter() - t0
+
+
+def _solve_and_finish_batch(pres, config, metrics_list, batch_metrics, paths, mesh=None) -> List[ProcessResult]:
+    """Pad every video's BA problem to the batch's largest (F, P, N), solve
+    them as one batch (over ``mesh``'s data devices when given) in the span
+    ``batch_solve`` of ``batch_metrics``, then volume and PLY per video."""
+    with batch_metrics.stage("batch_solve"):
+        # The data axis must divide the batch: pad with copies of the last
+        # problem.
+        n_solve = len(pres) if mesh is None else -(-len(pres) // mesh.shape["data"]) * mesh.shape["data"]
+        problem = _stacked_problem(list(pres) + [pres[-1]] * (n_solve - len(pres)))
+        if mesh is None:
+            result = bundle_adjust.solve_ba_batch(problem, config=config.solver)
+        else:
+            result = sharded.solve_ba_batch(mesh, problem, config=config.solver)
+        rmse_all = result.rmse.cpu().numpy()
+        # The lanes' iteration counts, kept on the device by the LM, read
+        # once: their sum is the lane-iterations the batch ran.
+        iters_all = result.iterations.cpu().numpy()
+        batch_metrics.add("lane_iterations:batch_solve", int(iters_all.sum()))
+        batch_metrics.add("lanes:batch_solve", n_solve)
+    batch = batch_metrics.as_dict()
 
     out: List[ProcessResult] = []
     for i, (pre, metrics, path) in enumerate(zip(pres, metrics_list, paths)):
@@ -243,7 +269,6 @@ def _solve_and_finish_batch(pres, config, metrics_list, paths, mesh=None) -> Lis
         rmse = float(rmse_all[i])
         metrics.count("ba_rmse_px", rmse)
         metrics.count("ba_iterations", int(iters_all[i]))
-        metrics.count("batch_solve_s", solve_s)  # the whole batch's solve
         metrics.count("points", n_pts)
         vol_hull, vol_carve, volume_confidence = _volume_of(pts, ext4, pre, config, metrics)
         with metrics.stage("result"):  # the host copies and the deferred counters' reads
@@ -259,7 +284,7 @@ def _solve_and_finish_batch(pres, config, metrics_list, paths, mesh=None) -> Lis
             volume_carved=vol_carve,
             ply_path=ply_path,
             reprojection_rmse=rmse,
-            metrics=metrics.as_dict(),
+            metrics={**metrics.as_dict(), "batch": batch},
             volume_confidence=volume_confidence,
         ))
     return out

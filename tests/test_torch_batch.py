@@ -254,3 +254,105 @@ def test_cuda_default_raises_without_a_card(clips, entry, monkeypatch):
             process_batch(frames, config=TINY, known_corners=corners)
         else:
             tpipelined.process_batch_pipelined(frames, config=TINY, known_corners=corners)
+
+
+def test_process_batch_reports_its_spans_once(batch_runs):
+    """The batch's own spans and counters: one dict, the same under
+    ``metrics["batch"]`` of every result; the LM's spans time under
+    ``batch_solve``, its iterations are the lanes' largest count and the
+    lane-iterations their sum; no video's timings hold a batch span."""
+    tres = batch_runs[1]
+    batch = tres[0].metrics["batch"]
+    assert all(r.metrics["batch"] is batch for r in tres)
+    timings, counters = batch["timings"], batch["counters"]
+    assert {"batch_prepass", "batch_pool", "batch_solve", "batch_solve/linearize", "batch_solve/solve",
+            "batch_solve/decide"} <= set(timings)
+    assert all(v > 0 for v in timings.values())
+    iters = [r.metrics["counters"]["ba_iterations"] for r in tres]
+    assert counters["lm_iterations:batch_solve"] == max(iters) > 0
+    assert counters["lane_iterations:batch_solve"] == sum(iters)
+    assert counters["lanes:batch_solve"] == len(tres)
+    for r in tres:
+        assert not any(k.startswith("batch_") for k in r.metrics["timings"])
+        assert "pass1_keyframes" in r.metrics["timings"] and "pose_ba" in r.metrics["timings"]
+
+
+@pytest.fixture(scope="module")
+def traced_batch(clips16):
+    """``batch_runs``' batch again, its stages synced and under a CPU
+    profiler, with the stacked problem the batched LM was given and its
+    result."""
+    import os
+
+    from meatmodeler_tpu_torch.parallel import batch as tbatch
+
+    frames, corners = clips16
+    seen = []
+    real = tba.solve_ba_batch
+
+    def solve_ba_batch(problem, *args, **kwargs):
+        out = real(problem, *args, **kwargs)
+        seen.append((problem, kwargs.get("config"), out))
+        return out
+
+    tbatch.bundle_adjust.solve_ba_batch = solve_ba_batch
+    os.environ["MEATMODELER_SYNC_STAGES"] = "1"
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            tres = process_batch(frames, config=from_fields(BATCH_CONFIG), known_corners=[corners[0], None],
+                                 device="cpu")
+    finally:
+        os.environ.pop("MEATMODELER_SYNC_STAGES")
+        tbatch.bundle_adjust.solve_ba_batch = real
+    ranges = {e.name for e in prof.events()}
+    return tres, seen, ranges
+
+
+def test_process_batch_is_unchanged_by_its_spans(batch_runs, traced_batch):
+    """Synced and traced, each video's cameras, points, RMSE and iterations
+    are bit for bit those of the untraced run, whose numbers the parity
+    tests above hold to JAX's; the batch's spans are profiler ranges."""
+    tres, _, ranges = traced_batch
+    for a, b in zip(batch_runs[1], tres):
+        np.testing.assert_array_equal(a.points, b.points)
+        np.testing.assert_array_equal(a.extrinsics, b.extrinsics)
+        assert a.reprojection_rmse == b.reprojection_rmse
+        assert a.metrics["counters"]["ba_iterations"] == b.metrics["counters"]["ba_iterations"]
+    assert {"batch_prepass", "batch_pool", "batch_solve", "batch_solve/decide"} <= ranges
+    assert tres[0].metrics["batch"]["counters"]["lm_iterations:batch_solve"] == max(
+        r.metrics["counters"]["ba_iterations"] for r in tres)
+
+
+def test_the_batched_solve_is_the_one_outside_every_span(traced_batch):
+    """The stacked problem solved again where no span or ``Metrics`` is open,
+    as the batched solve ran before it had spans: every lane bit for bit."""
+    _, seen, _ = traced_batch
+    (problem, config, inside), = seen
+    outside = tba.solve_ba_batch(problem, config=config)
+    for name in ("cam_params", "points", "rmse", "iterations", "cost"):
+        assert torch.equal(getattr(inside, name), getattr(outside, name)), name
+
+
+def test_a_clip_the_prepass_leaves_hunts_its_board_on_the_device(clips16, monkeypatch):
+    """A video alone for which the prepass finds fewer than 3 board
+    keyframes takes the per-video path: with the headline's host pass 1,
+    whose board hunt needs cv2, it scans and hunts on the device instead of
+    raising; the other video keeps the prepass."""
+    from meatmodeler_tpu_torch.parallel import batch as tbatch
+
+    frames, corners = clips16
+    real, calls = tbatch._resolve_board_corners, []
+
+    def resolve(*args, **kwargs):
+        calls.append(1)
+        kf_frames, kf_corners, kf_indices = real(*args, **kwargs)
+        return (kf_frames[:2], kf_corners[:2], kf_indices[:2]) if len(calls) == 1 else (kf_frames, kf_corners,
+                                                                                          kf_indices)
+
+    monkeypatch.setattr(tbatch, "_resolve_board_corners", resolve)
+    config = from_fields(BATCH_CONFIG)
+    assert config.pass1_backend == "host"
+    tres = process_batch(frames, config=config, device="cpu")
+    first, second = (r.metrics["counters"] for r in tres)
+    assert first.get("batch_fast_prepass") is None and second["batch_fast_prepass"] is True
+    assert first["keyframes"] >= 3 and np.isfinite(tres[0].points).all() and len(tres[0].points) > 0

@@ -1209,3 +1209,43 @@ def test_odometry_short_clip_reads_the_host_twice_a_step(cuda, monkeypatch):
     assert sum(v for k, v in reads.items() if k.startswith("odometry_scale")) <= 1, reads
     assert reads.get("odometry_relpose", 0) <= 1, reads
     assert sum(reads.values()) <= 2 * steps + 4, reads
+
+
+@pytest.mark.gpu
+def test_batch_solve_reads_the_host_once_an_iteration(cuda, monkeypatch):
+    """A 3-clip ``process_batch`` on the card, video alone (host pass 1, the
+    device detector), under ``MEATMODELER_SYNC_STAGES``: the span
+    ``batch_solve`` makes at most one host read an LM iteration (the "any
+    lane active" flag) plus the final reads of the lanes' RMSE and
+    iterations, so counting the lane-iterations adds none; its counters are
+    the lanes' iterations."""
+    import dataclasses
+
+    from meatmodeler_tpu_torch.config import DEFAULT_CONFIG, MatcherConfig, OrbConfig, TrackConfig, VolumeConfig
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+    from meatmodeler_tpu_torch.parallel.batch import process_batch
+
+    config = dataclasses.replace(
+        DEFAULT_CONFIG,
+        keyframe=dataclasses.replace(DEFAULT_CONFIG.keyframe, max_corners=256, threshold=0.02),
+        orb=OrbConfig(num_features=768, num_levels=2),
+        matcher=MatcherConfig(max_matches=512),
+        tracks=TrackConfig(max_tracks=2048, max_keyframes=32),
+        volume=VolumeConfig(voxel_resolution=48),
+        frame_chunk=8,
+        pass1_backend="host",
+        pass2_enhance="grey",
+        chessboard=dataclasses.replace(DEFAULT_CONFIG.chessboard, detector="device"),
+    )
+    scene = TurntableScene(image_size=(400, 300), focal=420.0, noise_sigma=1.0)
+    clips = [render_sequence(scene, 40, seed=seed)[0] for seed in range(3)]
+    process_batch(clips, config=config, device="cuda")  # warm: libraries, handles, allocator
+    monkeypatch.setenv("MEATMODELER_SYNC_STAGES", "1")
+    results = process_batch(clips, config=config, device="cuda")
+    counters = results[0].metrics["batch"]["counters"]
+    reads = {k: v for k, v in counters.items() if k.startswith("host_reads:batch_solve")}
+    iters = [r.metrics["counters"]["ba_iterations"] for r in results]
+    print(f"batch_solve: {counters['lm_iterations:batch_solve']} iterations, lanes {iters}; reads {reads}")
+    assert counters["lm_iterations:batch_solve"] == max(iters) > 0
+    assert counters["lane_iterations:batch_solve"] == sum(iters) and counters["lanes:batch_solve"] == 3
+    assert 0 < sum(reads.values()) <= counters["lm_iterations:batch_solve"] + 2
