@@ -81,14 +81,21 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   4. run ``process`` on the clip with ``headline_config()`` and the
      renderer's board corners twice, with the launch counts reset just
      before; check the
-     repo's accuracy bounds and that every kernel ran on this path, the
-     geometry's as the design gives: ``calib_lm`` twice per ``calibrate``,
+     repo's accuracy bounds and that every kernel ran on this path, ORB's
+     three once per pyramid level of each ``detect_and_compute`` call (4 a
+     ``pass2_orb`` call; so on every path below, and on the others each
+     ORB kernel once per level of their calls), the geometry's as the
+     design gives: ``calib_lm`` twice per ``calibrate``,
      ``pnp_refine`` once per ``solve_pnp_batch``, ``obs_jacobians`` once
      per LM iteration (half the normal-equation solves); then compare the
      kernels once more at the path's own CLAHE input (all keyframes, grey
      at 540x960) and time them there, and the geometry kernels at the
      calls the first run made (both LM runs, both PnP calls, the pose-only
-     and the global BA's first Jacobians); then the clip once more with the
+     and the global BA's first Jacobians); ORB's kernels against the plain
+     path at the first run's first ORB call (all keyframes, grey at
+     540x960): every level (``tools/orb_bench.level_agreement``) and the
+     whole call (``call_agreement``) by ``orb_bench.RULES``, then timed at
+     each level beside the plain ops they replace; then the clip once more with the
      geometry's plain versions on the card: its ``calibration_rms_px`` and
      ``pose_ba_rmse_px`` within 1e-3 of the kernel run's, no geometry
      kernel launched;
@@ -108,7 +115,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      bound from the work this run's data needed; then compare
      the kernels at this path's two CLAHE inputs, the first pass-1 chunk
      (32, 180, 320) and the keyframes' LAB lightness (n_kf, 540, 960), and
-     time them there too;
+     time them there too; ORB's kernels compared as in 4 at the first run's
+     first ORB call (the LAB lightness);
   6. the marker-free path, at the width of the JAX package's marker-free
      bench variant: its board-free clip (120 grey frames, 1280x720, seed 1)
      rendered on the card, through ``process`` with ``markerless_config()``
@@ -141,7 +149,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      counts reset just before), the second time with ``mesh=make_mesh()``
      over every visible GPU; every clip must take the batch prepass and
      meet the rmse and volume bounds, each CLAHE kernel must launch once
-     per clip, the geometry kernels as in 4 (counted, then compared at the
+     per clip, ORB's once per level of each call, and compared as in 4 at
+     the first run's first ORB call (one clip's keyframes), the geometry
+     kernels as in 4 (counted, then compared at the
      first two LM runs and PnP calls and at the first Jacobians of the
      pose-only BA and of the lanes, without and with the mesh), and the mesh
      run's BA problems, solved in float64 with and
@@ -228,7 +238,8 @@ lines are a JSON record of the kernels (launches summed over all paths;
 CLAHE's times, bound and share at the known path's keyframes,
 Lucas-Kanade's at the scan's input, the relative pose's kernels at the
 odometry's first step (the homography kernel's two launches summed) as
-the scale step's are, the
+the scale step's are, ORB's at level 0 of the known path's first ORB
+call (bounds from ``tools/orb_bench.work``), the
 geometry kernels' at the known path's own calls: its first
 calibration LM run, its pose stage's PnP, its global BA's first Jacobians,
 bounds from ``tools/geometry_bench``'s counts) and the device line.
@@ -262,14 +273,14 @@ from meatmodeler_tpu_torch.io import native_ops
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene
 from meatmodeler_tpu_torch.odometry import chain_poses
 from meatmodeler_tpu_torch.ops import clahe as clahe_mod
-from meatmodeler_tpu_torch.ops import clahe_cuda, color, cuda_build, klt, klt_cuda, matching
+from meatmodeler_tpu_torch.ops import clahe_cuda, color, cuda_build, klt, klt_cuda, matching, orb
 from meatmodeler_tpu_torch.parallel import sharded
 from meatmodeler_tpu_torch.parallel.batch import process_batch
 from meatmodeler_tpu_torch.parallel.pipelined import process_batch_pipelined
 from meatmodeler_tpu_torch.pipeline import process
 from meatmodeler_tpu_torch.solvers import bundle_adjust, bundle_adjust_cuda
 from meatmodeler_tpu_torch.tools import geometry_bench as gb
-from meatmodeler_tpu_torch.tools import ideal_visual_hull, volume_validation
+from meatmodeler_tpu_torch.tools import ideal_visual_hull, orb_bench, volume_validation
 from meatmodeler_tpu_torch.tools import scale_step_bench as ssb
 from meatmodeler_tpu_torch.tools.clahe_bench import time_kernels
 from meatmodeler_tpu_torch.tools.klt_bench import (
@@ -364,6 +375,11 @@ KERNELS = {
     "score_candidates": ("meatmodeler_tpu/geometry/ransac.py:544", "meatmodeler_tpu_torch/csrc/relpose_hyp.cu"),
     # The odometry's scale step: jitted XLA (triangulate_pairs) and numpy.
     "scale_step": ("meatmodeler_tpu/odometry.py:129", "meatmodeler_tpu_torch/csrc/scale_step.cu"),
+    # ORB's pyramid level, detection and description: XLA (detect_and_compute's
+    # FAST, Harris, NMS, orientation and BRIEF bin-weight matmul), not pallas_calls.
+    "orb_level": ("meatmodeler_tpu/ops/orb.py:232", "meatmodeler_tpu_torch/csrc/orb.cu"),
+    "orb_response": ("meatmodeler_tpu/ops/orb.py:232", "meatmodeler_tpu_torch/csrc/orb.cu"),
+    "orb_describe": ("meatmodeler_tpu/ops/orb.py:232", "meatmodeler_tpu_torch/csrc/orb.cu"),
 }
 HYP = ("essential_hypotheses", "homography_hypotheses", "recover_pose", "score_candidates")
 GEOMETRY = ("obs_jacobians", "pnp_refine", "calib_lm")
@@ -382,6 +398,7 @@ CHAIN_BA = ((bundle_adjust, "pose_only_refine"), (bundle_adjust, "adjust_points"
 SHARDED_BA = ((sharded, "solve_ba_point_sharded"),)
 GEOMETRY_RMSE_RTOL = 1e-3  # a path's calibration and pose-BA rms, kernels against plain versions
 CLAHE = ("clahe_lut", "clahe_apply")
+ORB = ("orb_level", "orb_response", "orb_describe")
 # Phase 3b's seeded Lucas-Kanade cases (``tools/klt_bench.lk_case``).
 LK_CASES = ("scan", "odometry", "two_view", "flat", "masked", "scan_edges", "two_view_edges", "ragged", "deep_edges")
 RELPOSE_TOL = 1e-4  # on the candidates float32 rounding does not decide
@@ -393,9 +410,90 @@ ODOMETRY_ONLY = ("scale_step",)
 LIBRARIES = (clahe_cuda, klt_cuda, ransac_cuda, ransac_hyp_cuda, bundle_adjust_cuda, pnp_cuda, calibration_cuda)
 
 
+# Each ``orb.detect_and_compute`` call on a CUDA stack since ``reset_counts``:
+# its pyramid levels, and the first call's (stack, keywords).
+ORB_LEVELS, ORB_FIRST = [], []
+
+
 def reset_counts() -> None:
     for lib in LIBRARIES:
         lib.reset_launches()
+    ORB_LEVELS.clear()
+    ORB_FIRST.clear()
+
+
+def _noting_orb_calls(real):
+    """``orb.detect_and_compute`` that notes each CUDA call in ``ORB_LEVELS``
+    and the first since ``reset_counts`` in ``ORB_FIRST``, from any thread."""
+    sig = inspect.signature(real)
+    lock = threading.Lock()
+
+    def call(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        arg = dict(bound.arguments)
+        img = arg.pop("img")
+        if img.is_cuda:
+            with lock:
+                ORB_LEVELS.append(arg["num_levels"])
+                if not ORB_FIRST:
+                    keep = {k: arg[k] for k in ("max_features", "num_levels", "scale_factor", "fast_threshold",
+                                                "grid_cells")}
+                    ORB_FIRST.append(((img if img.ndim == 3 else img[None]).to(torch.float32).contiguous(), keep))
+        return real(*args, **kwargs)
+
+    return call
+
+
+def check_orb(label, launches, levels_per_call=None) -> None:
+    """Each ORB kernel launched once per pyramid level of every call on the
+    card since ``reset_counts``; on a board path (``levels_per_call``, the
+    config's levels: 4) at least one call, each with that many levels."""
+    levels = sum(ORB_LEVELS)
+    got = {k: launches[k] for k in ORB}
+    print(f"[{label}] ORB: {len(ORB_LEVELS)} calls on the card, {levels} levels, launches {got}")
+    if any(v != levels for v in got.values()):
+        raise AssertionError(f"the ORB kernels of the {label} path did not launch once a level: {got}, "
+                             f"levels {ORB_LEVELS}")
+    if levels_per_call is not None and (not ORB_LEVELS or set(ORB_LEVELS) != {levels_per_call}):
+        raise AssertionError(f"the {label} path's ORB calls took levels {ORB_LEVELS}, not {levels_per_call} each")
+
+
+def compare_orb(label, stack, kwargs, err) -> None:
+    """ORB's kernels against the plain path at ``stack`` (B, H, W) on the
+    card: every level (``orb_bench.level_agreement``, on the plain path's
+    level images) and the whole call (``orb_bench.call_agreement``), by
+    ``orb_bench.RULES``, with TF32 off as the paths run ORB; raises on a
+    broken rule, folds the downscale's, Harris's and the angles' largest
+    differences into ``err``."""
+    with pipeline.full_fp32():
+        settings = orb_bench._settings(kwargs)
+        for lvl, (img, k, nxt) in enumerate(orb_bench.plain_levels(stack, *settings[:3])):
+            a = orb_bench.level_agreement(img, k, nxt, settings[3], settings[4])
+            print(f"kernel check orb {label} level {lvl} {tuple(img.shape)} k {k}: {a}")
+            if not a["ok"]:
+                raise AssertionError(f"the ORB kernels disagree with the plain path at {label} level {lvl}: {a}")
+            err["orb_level"] = max(err["orb_level"], a["resize"])
+            err["orb_response"] = max(err["orb_response"], a["harris"])
+            err["orb_describe"] = max(err["orb_describe"], a["angle"])
+        a = orb_bench.call_agreement(stack, **kwargs)
+    print(f"kernel check orb {label} whole call {tuple(stack.shape)} {kwargs}: {a}")
+    if not a["ok"]:
+        raise AssertionError(f"a whole ORB call disagrees with the plain path at {label}: {a}")
+    err["orb_describe"] = max(err["orb_describe"], a["angle"])
+
+
+def time_orb_at(label, stack, kwargs) -> dict:
+    """Each ORB kernel's device time at each level of ``stack``
+    (``orb_bench.time_input``) beside the plain ops it replaces and its
+    bound; returns level 0's rows by kernel."""
+    with pipeline.full_fp32():
+        rows = orb_bench.time_input(stack, kwargs)
+    for r in rows:
+        print(f"time {label} level {r['level']} {r['kernel']} {r['shape']}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f} "
+              f"ms), {r['bytes']:.0f} B, {r['flops']:.0f} operations, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), share of bound {r['share']:.3f}")
+    return {r["kernel"]: dict(r, at=list(r["shape"])) for r in rows if r["level"] == 0}
 
 
 def counts() -> dict:
@@ -971,6 +1069,7 @@ def run_path(label, scene, frames, corners, config, err, timings=None):
     launches = counts()
     if min(launches[k] for k in CLAHE) <= 0:
         raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
+    check_orb(label, launches, config.orb.num_levels)
     check_geometry(label, launches, calls, board=True)
     if config.pass1_backend == "device":
         print(f"[{label}] lk_track launches {launches['lk_track']} for {scanned} frames scanned in two runs")
@@ -1046,6 +1145,7 @@ def run_markerless(scene, frames, poses, err):
     launches = counts()
     if min(launches[k] for k in CLAHE) <= 0:
         raise AssertionError(f"a kernel of the markerless path never launched: {launches}")
+    check_orb("markerless", launches)
     if launches["refine_relpose"] != 2:
         raise AssertionError(f"the bootstrap did not launch refine_relpose once a run: {launches}")
     check_hyp_launches("markerless", launches, 2)
@@ -1169,7 +1269,9 @@ def run_batch(scene, clips):
           f"without (whole runs, float32): {float(np.max(np.abs(rmse[1] - rmse[0]) / rmse[0])):.3g}")
     if not (diff <= 1e-4 and torch.equal(with_mesh.iterations, without.iterations)):
         raise AssertionError("the batch solve over a mesh disagrees with the solve without")
-    return counts(), results[0].metrics["counters"]
+    launches = counts()
+    check_orb("batch", launches, config.orb.num_levels)
+    return launches, results[0].metrics["counters"]
 
 
 def run_pipelined(scene, clips, corners, err):
@@ -1184,6 +1286,7 @@ def run_pipelined(scene, clips, corners, err):
         torch.cuda.synchronize()
     t_pipe = time.perf_counter() - t0
     launches = counts()
+    check_orb("pipelined", launches, config.orb.num_levels)
     check_geometry("pipelined", launches, calls, board=True)
     geometry_at_path("pipelined", calib_calls, pnp_calls, ba_first, BOARD_BA, err)
     del calib_calls, pnp_calls, ba_first
@@ -1232,6 +1335,7 @@ def run_odometry(scene, frames, poses):
     if launches["scale_step"] != len(frames) - 1:
         raise AssertionError(f"scale_step did not launch once per odometry step: {launches}")
     check_hyp_launches("odometry", launches, len(frames) - 1)
+    check_orb("odometry", launches)
     return launches, res
 
 
@@ -1309,6 +1413,7 @@ def run_two_view(scene, frames):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
+    check_orb("two-view", launches)
     n_in = int(res.num_inliers)
     print(f"[two_view] frames 0 and 4: {wall:.3f} s, {n_in} inliers of {len(res.pts1)} matches, launches {launches}")
     if n_in < 50 or not torch.isfinite(res.points[res.inliers]).all():
@@ -1486,6 +1591,7 @@ def run_volume_tools():
         if not (Path(tmp) / "volval_torch_e2e_400.npz").exists():
             raise AssertionError("volume_validation wrote no capture")
     launches = counts()
+    check_orb("volume", launches)
     check_geometry("volume", launches, calls, board=True)
     if min(launches[k] for k in (*CLAHE, "lk_track")) <= 0:
         raise AssertionError(f"a kernel of the volume path never launched: {launches}")
@@ -1515,6 +1621,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, all at once
         list(pool.map(lambda lib: lib.build(), LIBRARIES))
     print(f"built {', '.join(str(lib.LIBRARY) for lib in LIBRARIES)} in {time.perf_counter() - t0:.2f} s")
+    orb.detect_and_compute = _noting_orb_calls(orb.detect_and_compute)
 
     err = {name: 0.0 for name in KERNELS}
     compare_kernels(dev, seeded_cases(dev), err)
@@ -1546,6 +1653,7 @@ def main() -> int:
     # keyframe descriptors are recorded for phase 10.
     with recording(bundle_adjust, "solve_ba") as solves, recording(matching, "match_descriptors") as matches:
         launches, c, _ = run_path("known", scene, frames, corners, config, err, geometry_timings)
+    orb_known = ORB_FIRST[0]
     # The path with the geometry's plain versions.
     run_plain_geometry("known", scene, frames, corners, config, c)
     ba_problem = [args[0] for args, kwargs in solves if not kwargs.get("fix_points")][-1]
@@ -1558,6 +1666,10 @@ def main() -> int:
     grey = torch.from_numpy(native_ops.bgr_to_grey_down(keyframes, p2s)).to(dev).float()
     compare_kernels(dev, [("known-path keyframes", grey, (8, 8))], err)
     time_at("known-path keyframes", grey, timings)
+    # ORB's kernels at the path's first ORB call: compared, then timed.
+    compare_orb("known-path keyframes", *orb_known, err)
+    orb_rows = time_orb_at("known-path keyframes", *orb_known)
+    del orb_known
 
     # Phase 5: the board-finding default path, video alone; its scan's
     # Lucas-Kanade calls are recorded to compare and time the kernel at the
@@ -1565,6 +1677,7 @@ def main() -> int:
     dconfig = detector_config(config)
     with recording(klt, "lucas_kanade") as calls:
         launches_d, c, flags = run_path("detector", scene, frames, None, dconfig, err)
+    compare_orb("detector-path LAB L", *ORB_FIRST[0], err)
     # The scan's first call tracks its start frame against itself.
     scan_lk = next(case for case in map(lk_call_case, calls) if not torch.equal(case[0][0], case[1][0]))
     del calls
@@ -1611,6 +1724,7 @@ def main() -> int:
             first_hyp_calls() as hyp_first:
         run_fallback(mframes)
     launches_f = counts()
+    check_orb("fallback", launches_f)
     # Its scan's first call between two frames, and its bootstrap's relative pose.
     fallback_lk = next(case for case in map(lk_call_case, calls) if not torch.equal(case[0][0], case[1][0]))
     compare_lk([("fallback scan input", fallback_lk)], err)
@@ -1630,6 +1744,7 @@ def main() -> int:
     print(f"rendered {len(bclips)} x {bclips[0].shape} in {time.perf_counter() - t0:.2f} s")
     with geometry_recorded(BATCH_BA) as (calib_calls, pnp_calls, ba_first, geometry_calls):
         launches_b, c = run_batch(bscene, bclips)
+    compare_orb("batch-clip keyframes", *ORB_FIRST[0], err)
     check_geometry("batch", launches_b, geometry_calls, board=True)
     add_counts(launches, launches_b)
     geometry_at_path("batch", calib_calls, pnp_calls, ba_first, BATCH_BA, err)
@@ -1715,6 +1830,7 @@ def main() -> int:
     rows["homography_hypotheses"].update(bound_by=both[0]["bound_by"], at=[both[0]["items"], both[0]["points"]],
                                          share=rows["homography_hypotheses"]["bound_ms"] / rows["homography_hypotheses"]["ms"])
     rows["scale_step"] = scale_row
+    rows.update(orb_rows)
     record = {
         "kernels": [
             {
@@ -1733,8 +1849,8 @@ def main() -> int:
                 # LK, a robust LM refinement, projection Jacobians, a
                 # Gauss-Newton PnP, an LM calibration, batched 8-point or
                 # 4-point RANSAC hypotheses with their consensus, a
-                # cheirality vote, a triangulated-reprojection score or a
-                # triangulated median-ratio scale step.
+                # cheirality vote, a triangulated-reprojection score, a
+                # triangulated median-ratio scale step or an ORB level.
                 "library_ms": None,
                 "at": rows[name]["at"],
             }

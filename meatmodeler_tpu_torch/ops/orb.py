@@ -10,6 +10,13 @@ pixels and the bilinear tap weights are rounded to bfloat16 here as well.
 What differs is the mechanism: the four bilinear taps of each sample are
 gathered directly instead of through the 52 MB ``brief_bin_weights``
 matmul, a TPU workaround.
+
+CUDA stacks take the hand-written kernels of ``csrc/orb.cu`` (launched by
+``ops/clahe_cuda``, whose library holds them): each level once for the
+whole stack, no per-image loop, no host read; the blur bit for bit the
+plain path's, the descriptors too wherever the angle falls in the same bin. CPU stacks take the plain
+PyTorch path below, in chunks of ``_CHUNK`` images, which is also what the
+card tests hold the kernels to.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from meatmodeler_tpu_torch.ops import features as feat
-from meatmodeler_tpu_torch.utils.profiling import trace
+from meatmodeler_tpu_torch.utils.profiling import span_add, trace
 
 __all__ = ["OrbFeatures", "fast_score", "detect_and_compute"]
 
@@ -96,6 +103,24 @@ def _brief_taps():
     return torch.from_numpy(rows), torch.from_numpy(cols), wts_bf16
 
 
+@functools.lru_cache(maxsize=1)
+def _brief_table() -> np.ndarray:
+    """``_brief_taps()`` packed for the card's descriptor kernel: (NBINS,
+    512, 4) int32, per sample ``y0 | x0 << 8`` (its first tap; the others at
+    (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)), then the four bf16
+    weights two to a word, low half first, and a zero."""
+    rows, cols, wts = (t.numpy() for t in _brief_taps())
+    y0, x0 = rows[..., 0], cols[..., 0]
+    if not (np.array_equal(rows, y0[..., None] + [0, 0, 1, 1]) and np.array_equal(cols, x0[..., None] + [0, 1, 0, 1])):
+        raise AssertionError("BRIEF taps are not a 2 x 2 block")
+    bits = (wts.astype(np.float32).view(np.uint32) >> 16).astype(np.uint32)
+    table = np.zeros((_NBINS, 512, 4), np.uint32)
+    table[..., 0] = y0 | (x0 << 8)
+    table[..., 1] = bits[..., 0] | (bits[..., 1] << 16)
+    table[..., 2] = bits[..., 2] | (bits[..., 3] << 16)
+    return table.view(np.int32)
+
+
 def fast_score(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
     """FAST-9/16 segment test on (H, W) or (B, H, W): 1.0 where >= 9
     contiguous ring neighbours are all brighter than p + t or all darker
@@ -151,11 +176,17 @@ def _describe(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor, mask
     return torch.where(mask[:, None], bits, torch.zeros_like(bits))
 
 
+@functools.lru_cache(maxsize=1)
+def _gauss_taps() -> np.ndarray:
+    """The 7 float32 taps of ``_gauss7`` (sigma 2, normalised); read only."""
+    g = np.exp(-0.5 * (np.arange(-3, 4) / 2.0) ** 2)
+    return (g / g.sum()).astype(np.float32)
+
+
 def _gauss7(img: torch.Tensor) -> torch.Tensor:
     """7x7 Gaussian (sigma 2) blur, separable, edge-padded, summed in the
     reference's tap order."""
-    g = np.exp(-0.5 * (np.arange(-3, 4) / 2.0) ** 2)
-    g = (g / g.sum()).astype(np.float32)
+    g = _gauss_taps()
     h, w = img.shape[-2:]
     p = F.pad(img[:, None], (0, 0, 3, 3), mode="replicate")[:, 0]
     tmp = float(g[0]) * p[:, 0:h]
@@ -186,6 +217,22 @@ def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
     )
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
     return np.where(inside[None, :], wts, 0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_taps(in_size: int, out_size: int):
+    """``_resize_weights(in_size, out_size)`` as bands: (start (out,) int32,
+    weights (out, n) float32) with output j's weights at inputs start[j] ..
+    start[j] + n - 1, n the widest support (3 at 1/1.2); a column with no
+    weight starts at 0 with zeros."""
+    dense = _resize_weights(in_size, out_size)
+    nz = dense != 0
+    first = np.where(nz.any(axis=0), nz.argmax(axis=0), 0)
+    last = np.where(nz.any(axis=0), in_size - 1 - nz[::-1].argmax(axis=0), 0)
+    n = max(int((last - first).max()) + 1, 1)
+    start = np.minimum(first, in_size - n).astype(np.int32)
+    weights = dense[start[None, :] + np.arange(n)[:, None], np.arange(out_size)[None, :]].T
+    return start, np.ascontiguousarray(weights, dtype=np.float32)
 
 
 def _resize(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
@@ -238,7 +285,41 @@ def _grid_top_k(resp: torch.Tensor, k: int, g: int):
     return top_resp, torch.gather(cand_idx, 1, sel)
 
 
+def _next_size(h: int, w: int, scale_factor: float):
+    return max(int(round(h / scale_factor)), _PATCH + 2), max(int(round(w / scale_factor)), _PATCH + 2)
+
+
+def _select(masked: torch.Tensor, k: int, grid_cells: int):
+    """A level's ``k`` keypoints from its masked (B, H, W) responses:
+    (responses (B, k), flat pixel indices (B, k), (x, y) (B, k, 2), mask),
+    slots past the candidates padded with -inf."""
+    bsz, h, w = masked.shape
+    if grid_cells > 1 and h >= grid_cells and w >= grid_cells:
+        top_resp, top_idx = _grid_top_k(masked, k, grid_cells)
+    else:
+        top_resp, top_idx = _top_k(masked.reshape(bsz, -1), min(k, h * w))
+    k_eff = top_resp.shape[1]
+    if k_eff < k:
+        top_resp = F.pad(top_resp, (0, k - k_eff), value=-torch.inf)
+        top_idx = F.pad(top_idx, (0, k - k_eff))
+    kxy = torch.stack([(top_idx % w).to(torch.float32), (top_idx // w).to(torch.float32)], dim=-1)
+    return top_resp, top_idx, kxy, torch.isfinite(top_resp)
+
+
+def _level_features(lvl, scale_factor, top_resp, kxy, kmask, angle, desc) -> OrbFeatures:
+    bsz, k = kmask.shape
+    return OrbFeatures(
+        xy=kxy * (scale_factor**lvl),
+        response=torch.where(kmask, top_resp, torch.full_like(top_resp, -torch.inf)),
+        angle=angle.to(torch.float32),
+        octave=torch.full((bsz, k), lvl, dtype=torch.int32, device=kmask.device),
+        descriptors=desc,
+        mask=kmask,
+    )
+
+
 def _detect_chunk(img, max_features, num_levels, scale_factor, fast_threshold, grid_cells):
+    """The plain path on a chunk of at most ``_CHUNK`` images."""
     bsz = img.shape[0]
     level_img = img
     outs = []
@@ -256,37 +337,53 @@ def _detect_chunk(img, max_features, num_levels, scale_factor, fast_threshold, g
             margin = _HALF + 1
             ok = (resp >= neigh) & (yy >= margin) & (yy < h - margin) & (xx >= margin) & (xx < w - margin)
             masked = torch.where(ok, resp, torch.full_like(resp, -torch.inf))
-            if grid_cells > 1 and h >= grid_cells and w >= grid_cells:
-                top_resp, top_idx = _grid_top_k(masked, k, grid_cells)
-            else:
-                top_resp, top_idx = _top_k(masked.reshape(bsz, -1), min(k, h * w))
-            k_eff = top_resp.shape[1]
-            if k_eff < k:
-                top_resp = F.pad(top_resp, (0, k - k_eff), value=-torch.inf)
-                top_idx = F.pad(top_idx, (0, k - k_eff))
-            kxy = torch.stack([(top_idx % w).to(torch.float32), (top_idx // w).to(torch.float32)], dim=-1)
-            kmask = torch.isfinite(top_resp)
+            top_resp, _, kxy, kmask = _select(masked, k, grid_cells)
 
         with trace("orientation"):
             angle = torch.stack([_orientation(level_img[i], kxy[i], kmask[i]) for i in range(bsz)])
         with trace("describe"):
             blurred = _gauss7(level_img)
             desc = torch.stack([_describe(blurred[i], kxy[i], angle[i], kmask[i]) for i in range(bsz)])
-        outs.append(
-            OrbFeatures(
-                xy=kxy * (scale_factor**lvl),
-                response=torch.where(kmask, top_resp, torch.full_like(top_resp, -torch.inf)),
-                angle=angle.to(torch.float32),
-                octave=torch.full((bsz, k), lvl, dtype=torch.int32, device=img.device),
-                descriptors=desc,
-                mask=kmask,
-            )
-        )
+        outs.append(_level_features(lvl, scale_factor, top_resp, kxy, kmask, angle, desc))
         if lvl < num_levels - 1:
             with trace("pyramid"):
-                nh = max(int(round(h / scale_factor)), _PATCH + 2)
-                nw = max(int(round(w / scale_factor)), _PATCH + 2)
-                level_img = _resize(level_img, nh, nw)
+                level_img = _resize(level_img, *_next_size(h, w, scale_factor))
+    return OrbFeatures(*(torch.cat(parts, dim=1) for parts in zip(*outs)))
+
+
+def _detect_plain(img, max_features, num_levels, scale_factor, fast_threshold, grid_cells):
+    """The plain path on a (B, H, W) stack on any device, ``_CHUNK`` images
+    at a time: the CPU's path, and the reference the card's is held to."""
+    parts = [
+        _detect_chunk(img[i : i + _CHUNK], max_features, num_levels, scale_factor, fast_threshold, grid_cells)
+        for i in range(0, img.shape[0], _CHUNK)
+    ]
+    return OrbFeatures(*(torch.cat(p, dim=0) for p in zip(*parts)))
+
+
+def _detect_card(img, max_features, num_levels, scale_factor, fast_threshold, grid_cells):
+    """The card's path on the whole (B, H, W) CUDA stack: a level at a time,
+    its blur and the next level (``pyramid``), its masked responses and the
+    selection (``detect``), then every keypoint's angle and bits
+    (``describe``) through the kernels of ``ops/clahe_cuda``; nothing is read
+    back to the host."""
+    from meatmodeler_tpu_torch.ops import clahe_cuda
+
+    level_img = img
+    outs = []
+    for lvl, budget in enumerate(_level_budgets(max_features, num_levels, scale_factor)):
+        h, w = level_img.shape[-2:]
+        last = lvl == num_levels - 1
+        with trace("pyramid"):
+            blurred, next_img = clahe_cuda.orb_level_build(level_img, None if last else _next_size(h, w, scale_factor))
+        with trace("detect"):
+            masked = clahe_cuda.orb_response(level_img, fast_threshold, margin=_HALF + 1)
+            top_resp, top_idx, kxy, kmask = _select(masked, max(budget, 1), grid_cells)
+        with trace("describe"):
+            angle, desc = clahe_cuda.orb_describe(level_img, blurred, top_idx, top_resp, 2.0 * math.pi / _NBINS)
+        outs.append(_level_features(lvl, scale_factor, top_resp, kxy, kmask, angle, desc))
+        level_img = next_img
+    span_add("orb_kernel_levels", num_levels)
     return OrbFeatures(*(torch.cat(parts, dim=1) for parts in zip(*outs)))
 
 
@@ -313,9 +410,8 @@ def detect_and_compute(
     """
     single = img.ndim == 2
     stack = (img[None] if single else img).to(torch.float32)
-    parts = [
-        _detect_chunk(stack[i : i + _CHUNK], max_features, num_levels, scale_factor, fast_threshold, grid_cells)
-        for i in range(0, stack.shape[0], _CHUNK)
-    ]
-    out = OrbFeatures(*(torch.cat(p, dim=0) for p in zip(*parts)))
+    if stack.is_cuda:
+        out = _detect_card(stack.contiguous(), max_features, num_levels, scale_factor, fast_threshold, grid_cells)
+    else:
+        out = _detect_plain(stack, max_features, num_levels, scale_factor, fast_threshold, grid_cells)
     return OrbFeatures(*(t[0] for t in out)) if single else out

@@ -1249,3 +1249,186 @@ def test_batch_solve_reads_the_host_once_an_iteration(cuda, monkeypatch):
     assert counters["lm_iterations:batch_solve"] == max(iters) > 0
     assert counters["lane_iterations:batch_solve"] == sum(iters) and counters["lanes:batch_solve"] == 3
     assert 0 < sum(reads.values()) <= counters["lm_iterations:batch_solve"] + 2
+
+
+@pytest.fixture(scope="module")
+def orb_inputs():
+    """The stacks the paths hand ``orb.detect_and_compute`` on the card
+    (``tools/orb_bench.record_inputs``): the known cell's keyframes, the
+    video cell's LAB lightness, a batch-cell video's and two-view's image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from meatmodeler_tpu_torch.tools import orb_bench
+
+    return orb_bench.record_inputs()
+
+
+def _orb_edge_stack(case, device):
+    """(stack, detect_and_compute keywords) of one edge case."""
+    rng = np.random.default_rng(20)
+    if case == "margin":  # pixel noise: corners everywhere, up to the margin
+        return torch.from_numpy(rng.integers(0, 256, (2, 96, 128)).astype(np.float32)).to(device), {
+            "max_features": 4000, "num_levels": 2}
+    if case == "few":  # four bright squares: 16 corners against a budget of 600
+        img = np.full((2, 120, 160), 40.0, np.float32)
+        for y, x in ((30, 30), (30, 100), (70, 50), (75, 110)):
+            img[:, y : y + 14, x : x + 14] = 200.0
+        return torch.from_numpy(img).to(device), {"max_features": 1000, "num_levels": 2}
+    if case == "flat":
+        return torch.full((2, 80, 100), 135.0, device=device), {"max_features": 300, "num_levels": 3}
+    if case == "single":
+        return torch.from_numpy(rng.uniform(0, 255, (1, 100, 140)).astype(np.float32)).round().to(device), {
+            "max_features": 500, "num_levels": 3}
+    if case == "floor":  # 40 -> 33 -> 33: levels at the _PATCH + 2 floor
+        return torch.from_numpy(rng.integers(0, 256, (3, 40, 40)).astype(np.float32)).to(device), {
+            "max_features": 300, "num_levels": 3}
+    raise ValueError(case)
+
+
+def _hold_orb_to_plain_path(stack, kwargs):
+    from meatmodeler_tpu_torch.tools import orb_bench
+
+    settings = orb_bench._settings(kwargs)
+    for lvl, (img, k, nxt) in enumerate(orb_bench.plain_levels(stack, *settings[:3])):
+        a = orb_bench.level_agreement(img, k, nxt, settings[3], settings[4])
+        print(f"level {lvl} {tuple(img.shape)} k {k}: {a}")
+        assert a["ok"], (lvl, a)
+    a = orb_bench.call_agreement(stack, **kwargs)
+    print(f"whole call: {a}")
+    assert a["ok"], a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["known", "video", "batch", "two_view"])
+def test_orb_kernels_match_plain_path_at_the_paths_inputs(cuda, orb_inputs, name):
+    """Every level of each path's recorded stack: FAST flags equal, blurred
+    levels bit-identical, downscales within 1e-4, Harris within 1e-5 of the
+    largest |response|, 99.5% of keypoints common with every difference a
+    near-tie at the k-th, angles within 1e-5 rad of the exact angle and of
+    the plain angle beyond the plain path's own float32 rounding, bins equal
+    off the edges, descriptors bit-identical where the bins agree
+    (``orb_bench.RULES``, ``orb_bench._describe_agreement``)."""
+    stack, kwargs = orb_inputs[name]
+    print(f"{name}: {tuple(stack.shape)} {kwargs}")
+    assert stack.shape[1:] == ((720, 1280) if name == "two_view" else (540, 960))
+    _hold_orb_to_plain_path(stack, kwargs)
+
+
+@pytest.mark.gpu
+def test_orb_card_path_meets_the_jax_reference(cuda):
+    """The card path on the two frames of ``data/orb_jax_reference.npz``
+    against the JAX package's features of them, stored there (kept true to
+    the JAX package by ``tests/test_torch_orb_kernels.py``): at least 99% of
+    the slots identical, angles within 1e-4 rad, bins equal off the edges,
+    descriptors bit-identical where the bins agree, responses within rtol
+    1e-4 (``orb_bench.reference_agreement``)."""
+    from pathlib import Path
+
+    from meatmodeler_tpu_torch.ops import orb
+    from meatmodeler_tpu_torch.tools import orb_bench
+
+    with np.load(Path(__file__).parent / "data" / "orb_jax_reference.npz") as data:
+        ref = {k: data[k] for k in data.files}
+    frames = torch.from_numpy(ref["frames_u16"].astype(np.float32) / 256).to(cuda)
+    a = orb_bench.reference_agreement(orb.detect_and_compute(frames, max_features=512, num_levels=3), ref)
+    print(f"card path against the JAX package: {a}")
+    assert a["ok"], a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["margin", "few", "flat", "single", "floor"])
+def test_orb_kernels_edge_cases(cuda, case):
+    from meatmodeler_tpu_torch.ops import orb
+
+    stack, kwargs = _orb_edge_stack(case, cuda)
+    _hold_orb_to_plain_path(stack, kwargs)
+    out = orb.detect_and_compute(stack, **kwargs)
+    if case == "flat":
+        assert not bool(out.mask.any()) and not bool(out.descriptors.any())
+    if case == "few":
+        assert 0 < int(out.mask[0].sum()) < kwargs["max_features"] // 2
+    if case == "margin":
+        x, y = out.xy[out.mask & (out.octave == 0)].unbind(-1)
+        assert int(x.min()) >= 16 and int(y.min()) >= 16 and int(x.max()) <= 128 - 17 and int(y.max()) <= 96 - 17
+        assert bool(((x == 16) | (x == 128 - 17) | (y == 16) | (y == 96 - 17)).any())
+
+
+@pytest.mark.gpu
+def test_orb_card_call_counts_levels_and_launches_without_host_reads(cuda):
+    """One warm call on a (3, 120, 160) stack: each level through the three
+    kernels once (``LAUNCHES``), ``orb_kernel_levels`` 4 on the span, and
+    no synchronizing operation (sync debug mode "error")."""
+    from meatmodeler_tpu_torch.ops import clahe_cuda, orb
+    from meatmodeler_tpu_torch.utils.profiling import Metrics
+
+    stack = torch.from_numpy(np.random.default_rng(21).integers(0, 256, (3, 120, 160)).astype(np.float32)).to(cuda)
+    orb.detect_and_compute(stack, max_features=500, num_levels=4)  # warm: library, resident tables
+    before = dict(clahe_cuda.LAUNCHES)
+    metrics = Metrics()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with metrics.stage("pass2_orb"):
+            orb.detect_and_compute(stack, max_features=500, num_levels=4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {k: clahe_cuda.LAUNCHES[k] - before[k] for k in before} == {"clahe_lut": 0, "clahe_apply": 0,
+                                                                       "orb_level": 4, "orb_response": 4,
+                                                                       "orb_describe": 4}
+    assert metrics.as_dict()["counters"] == {"orb_kernel_levels:pass2_orb": 4}
+
+
+@pytest.mark.gpu
+def test_orb_wrappers_reject_bad_input(cuda):
+    from meatmodeler_tpu_torch.ops import clahe_cuda
+
+    img = torch.zeros((2, 64, 64), device=cuda)
+    for bad in (img.cpu(), img.double(), img[0], img.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            clahe_cuda.orb_response(bad, 20.0, margin=16)
+    idx = torch.zeros((2, 5), dtype=torch.int64, device=cuda)
+    resp = torch.zeros((2, 5), device=cuda)
+    with pytest.raises(ValueError):
+        clahe_cuda.orb_describe(img, img, idx.int(), resp, 0.2)
+    with pytest.raises(ValueError):
+        clahe_cuda.orb_describe(img, img, idx[:1], resp, 0.2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["known", "video"])
+def test_process_runs_orb_on_the_kernels_without_host_reads(cuda, path, monkeypatch):
+    """A small ``process`` call on the card with 4 ORB levels, known corners
+    or video alone: ``orb_kernel_levels:pass2_orb`` is 4 and, warm and under
+    ``MEATMODELER_SYNC_STAGES``, ``pass2_orb`` and its children read the
+    host 0 times."""
+    import dataclasses
+
+    from meatmodeler_tpu_torch.config import DEFAULT_CONFIG, MatcherConfig, OrbConfig, TrackConfig, VolumeConfig
+    from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
+    from meatmodeler_tpu_torch.pipeline import process
+
+    config = dataclasses.replace(
+        DEFAULT_CONFIG,
+        keyframe=dataclasses.replace(DEFAULT_CONFIG.keyframe, max_corners=256, threshold=0.02),
+        orb=OrbConfig(num_features=768, num_levels=4),
+        matcher=MatcherConfig(max_matches=512),
+        tracks=TrackConfig(max_tracks=2048, max_keyframes=32),
+        volume=VolumeConfig(voxel_resolution=48),
+        frame_chunk=8,
+    )
+    if path == "known":
+        config = dataclasses.replace(config, pass1_backend="host", pass2_enhance="grey")
+    else:
+        config = dataclasses.replace(config, chessboard=dataclasses.replace(config.chessboard, detector="device"))
+    scene = TurntableScene(image_size=(400, 300), focal=420.0, noise_sigma=1.0)
+    frames, _, corners = render_sequence(scene, 40, seed=0)
+    corners = corners if path == "known" else None
+    process(frames, config=config, known_corners=corners, device="cuda")  # warm
+    monkeypatch.setenv("MEATMODELER_SYNC_STAGES", "1")
+    counters = process(frames, config=config, known_corners=corners, device="cuda").metrics["counters"]
+    orb_reads = {k: v for k, v in counters.items() if k.startswith("host_reads:pass2_orb")}
+    print(f"{path}: orb_kernel_levels {counters.get('orb_kernel_levels:pass2_orb')}, reads {orb_reads}")
+    assert counters["orb_kernel_levels:pass2_orb"] == 4
+    assert sum(orb_reads.values()) == 0
