@@ -385,8 +385,7 @@ HYP = ("essential_hypotheses", "homography_hypotheses", "recover_pose", "score_c
 GEOMETRY = ("obs_jacobians", "pnp_refine", "calib_lm")
 # What each geometry kernel's launches are counted against: the calls of
 # these functions in the same window.
-GEOMETRY_CALLS = ((calibration, "calibrate"), (pnp, "solve_pnp_batch"), (bundle_adjust, "_solve_normal_equations"),
-                  (bundle_adjust, "_solve_normal_equations_batch"))
+GEOMETRY_CALLS = ((calibration, "calibrate"), (pnp, "solve_pnp_batch"), (bundle_adjust, "_schur_step"))
 # The BA callers at whose first Jacobians each path holds the kernel:
 # the board paths' pose-only BA and global BA, the batch's pose-only BA and
 # its lanes (without and with a mesh), the marker-free chain's pose-only
@@ -554,7 +553,7 @@ def check_geometry(label, launches, calls, board: bool, chain: bool = True) -> N
     (``chain``) the Jacobians did, elsewhere none. ``calls`` is
     ``geometry_counts``'."""
     n = {k: len(v) for k, v in calls.items()}
-    solves = n["_solve_normal_equations"] + n["_solve_normal_equations_batch"]
+    solves = n["_schur_step"]
     print(f"[{label}] geometry launches {({k: launches[k] for k in GEOMETRY})} for {n['calibrate']} calibrate, "
           f"{n['solve_pnp_batch']} solve_pnp_batch, {solves} normal-equation solves")
     if launches["calib_lm"] != 2 * n["calibrate"] or launches["pnp_refine"] != n["solve_pnp_batch"]:

@@ -165,9 +165,10 @@ def solve_ba_batch(
     """Independent BA solves split over ``data``: ``problems`` carries a
     leading lane axis on every field (``bundle_adjust.solve_ba_batch``'s
     layout) whose length divides the data axis. Each device runs its lanes'
-    batched LM, with per-lane damping and stopping; the devices step in
-    lockstep, and one read per iteration fetches every device's "any lane
-    active" flag (a device whose lanes are done stops stepping). No
+    batched LM (``bundle_adjust._BatchSolve``), with per-lane damping and
+    stopping; the one LM loop (``bundle_adjust._lm_loop``) steps the devices
+    in lockstep and fetches every device's "any lane active" flag in one
+    read an iteration (a device whose lanes are done stops stepping). No
     communication. The results come back in lane order on the problems'
     device."""
     config = config or SolverConfig()
@@ -178,15 +179,12 @@ def solve_ba_batch(
     per = nv // len(devices)
     solves = [
         bundle_adjust._BatchSolve(
-            bundle_adjust.BAProblem(*(None if x is None else x[i * per : (i + 1) * per].to(dev) for x in problems)),
+            [bundle_adjust.BAProblem(*(None if x is None else x[i * per : (i + 1) * per].to(dev) for x in problems))],
             config,
         )
         for i, dev in enumerate(devices)
     ]
-    running = list(range(len(solves))) if config.max_iters > 0 else []
-    while running:
-        flags = torch.stack([solves[i].step().to(devices[0]) for i in running]).tolist()  # the one host read
-        running = [i for i, active in zip(running, flags) if active]
+    bundle_adjust._lm_loop(solves)
     home = problems.cam_params.device
     results = [s.result() for s in solves]
     return bundle_adjust.BAResult(*(torch.cat([f.to(home) for f in fields]) for fields in zip(*results)))
@@ -201,8 +199,8 @@ def solve_ba_point_sharded(
     blocks of ceil(P / data) (the last padded with unobserved points), each
     valid observation goes to its point's block with a local point index,
     and every shard's observation list is padded (masked) to the longest.
-    The LM loop (``bundle_adjust._solve_shards``) then steps every shard on
-    its device: the camera-sized sums (U, b_c, the Schur cross term, the
+    One lane of the LM (``bundle_adjust._BatchSolve``) then steps every
+    shard on its device: the camera-sized sums (U, b_c, the Schur cross term, the
     reduced RHS, the costs, the observation count, the rmse's sum) go
     through :func:`all_reduce_sum`, so every shard walks the same
     trajectory; the point blocks, and the (P / data, F, 6, 3) Schur strips,
@@ -242,14 +240,13 @@ def solve_ba_point_sharded(
             mask=torch.arange(nl, device=dev) < counts[s],
             weight=padded(weight, 1),
         ))
-    results = bundle_adjust._solve_shards(shards, config, init_lambda=init_lambda, reduce=all_reduce_sum)
-    first = results[0]
-    return first._replace(
-        cam_params=first.cam_params.to(home),
-        points=torch.cat([r.points.to(home) for r in results])[:p_total],
-        cost=first.cost.to(home),
-        rmse=first.rmse.to(home),
-        final_lambda=first.final_lambda.to(home),
+    res = bundle_adjust._solve_one(shards, config, init_lambda=init_lambda, reduce=all_reduce_sum)
+    return res._replace(
+        cam_params=res.cam_params.to(home),
+        points=res.points[:p_total].to(home),
+        cost=res.cost.to(home),
+        rmse=res.rmse.to(home),
+        final_lambda=res.final_lambda.to(home),
     )
 
 

@@ -3,28 +3,26 @@
 
 Same algorithm as the reference: per-observation Jacobians (one launch of
 the hand-written kernel ``csrc/ba_jac.cu`` an iteration on the card,
-forward-mode AD on the CPU), block-diagonal U (F,6,6) / V (P,3,3), point elimination through the
-dense (P, F*6, 3) strip, a dense reduced camera solve, back-substitution,
-and the Marquardt-damped LM loop with the reference's ftol rule. The loop is
-a Python loop that reads one flag back per iteration. Each iteration runs
-in three spans (``utils/profiling.trace``): ``linearize`` (residuals and
-Jacobians), ``solve`` (the normal equations and both trial steps, with
-``torch.linalg``'s info reads) and ``decide`` (the acceptance rule and the
-flag read); each loop adds its iterations to the counter
-``lm_iterations:<path>`` of the span it runs in. Problems are solved
-at their exact shapes: the reference's bucket padding exists only so XLA
-compiles once, and its padded rows are masked out, so the trajectory is the
-same.
+forward-mode AD on the CPU), block-diagonal U (F,6,6) / V (P,3,3), point
+elimination through the dense (P, F*6, 3) strip, a dense reduced camera
+solve, back-substitution, and the Marquardt-damped LM loop with the
+reference's ftol rule. Problems are solved at their exact shapes: the
+reference's bucket padding exists only so XLA compiles once, and its padded
+rows are masked out, so the trajectory is the same.
 
-The loop runs over point shards (``_solve_shards``): each shard holds the
-cameras and a block of the points with their observations; the
-camera-sized sums (U, b_c, the Schur cross term, the reduced RHS, the cost)
-go through a reduction across the shards where the reference calls
-``_allsum``, so every shard solves the same reduced camera system and walks
-the same LM trajectory. ``solve_ba`` is the one-shard case;
-``parallel.sharded.solve_ba_point_sharded`` spreads the shards over a mesh,
-which ``adjust_points`` does on request (``solver.point_shard_devices``) or
-when the dense Schur strip outgrows ``solver.hbm_strip_budget_bytes``.
+Every solve runs through one Schur step (``_schur_step``: problems
+stacked on a leading lane axis, each lane its own reduced camera system,
+over point shards whose camera-sized sums go through a reduction where the
+reference calls ``_allsum``), one stepper (``_BatchSolve``: each lane keeps
+its own damping, cost, iteration count and stop, as under the reference's
+``vmap`` of one ``while_loop``) and one loop (``_lm_loop``: one stepper, or
+one per device in lockstep, one host read an iteration). Each iteration
+runs in three spans (``utils/profiling.trace``): ``linearize`` (residuals
+and Jacobians), ``solve`` (both trial steps) and ``decide`` (the acceptance
+rule and the flag read); each loop adds its iterations to the counter
+``lm_iterations:<path>`` of the span it runs in. The ``_ex`` solves check
+nothing on the host, as the reference's do: a step that is not finite has a
+cost that is not finite, which the acceptance rule never takes.
 """
 
 from __future__ import annotations
@@ -67,18 +65,23 @@ class BAResult(NamedTuple):
 
 
 def _residuals(cam, pts, intrinsics, obs, fidx, pidx, mask, weight=None):
-    r = (projection.project_points(pts[pidx], cam[fidx], intrinsics) - obs) * mask[:, None]
-    if weight is not None:
-        r = r * weight[:, None]
-    return r
+    """Masked, weighted reprojection residuals (..., N, 2) of one problem, or
+    of problems stacked on a leading lane axis (every argument with it,
+    ``intrinsics`` (L, 3, 3), indices numbered within their lane):
+    ``projection.project_points`` with one K a lane."""
+    c = torch.gather(cam, -2, fidx[..., None].expand(*fidx.shape, 6))
+    x = torch.gather(pts, -2, pidx[..., None].expand(*pidx.shape, 3))
+    x = projection.rotate_points(x, c[..., :3]) + c[..., 3:6]
+    homog = torch.einsum("...ij,...nj->...ni", intrinsics, x)
+    r = (homog[..., :2] / homog[..., 2:3] - obs) * mask[..., None]
+    return r if weight is None else r * weight[..., None]
 
 
 def _obs_jacobians(cam, pts, intrinsics, obs, fidx, pidx, mask, weight=None):
     """Per-observation residual Jacobians: (N,2,6) wrt camera, (N,2,3) wrt
     point, masked and weighted; with a leading lane axis on every argument,
-    per lane (``solve_ba_batch``). One launch of the CUDA kernel
-    (``bundle_adjust_cuda``) for tensors on the card, the plain version for
-    tensors on the CPU."""
+    per lane. One launch of the CUDA kernel (``bundle_adjust_cuda``) for
+    tensors on the card, the plain version for tensors on the CPU."""
     if cuda_build.on_card(cam):
         return bundle_adjust_cuda.obs_jacobians(cam, pts, intrinsics, fidx, pidx, mask, weight)
     if cam.ndim == 3:
@@ -111,92 +114,87 @@ def _identity(tensors):
     return tensors
 
 
-def _damped_u(u, lam):
-    """Marquardt damping of the camera blocks (``lam`` one damping, or one
-    per camera); an unobserved camera gets an identity block, so its rows
-    decouple and its step solves to 0."""
-    eye6 = torch.eye(6, dtype=u.dtype, device=u.device)
-    lam = lam if lam.ndim == 0 else lam[:, None, None]
-    u_d = u + lam * (u * eye6 + 1e-8 * eye6)
-    u_trace = torch.einsum("fii->f", u)
-    return torch.where((u_trace < 1e-12)[:, None, None], eye6, u_d)
+def _across_lanes(problem: BAProblem):
+    """Each observation's camera and point of lane-stacked problems numbered
+    across the lanes (lane * F + f, lane * P + p), so that one segment sum
+    serves every lane."""
+    (nl, f), p = problem.cam_params.shape[:2], problem.points.shape[1]
+    lane = torch.arange(nl, device=problem.frame_idx.device)[:, None]
+    return (lane * f + problem.frame_idx).reshape(-1), (lane * p + problem.point_idx).reshape(-1)
 
 
-def _point_side(problem: BAProblem, lam, jc, jp, r):
-    """One shard's point side: the damped, guarded V^-1, b_p and the W
-    blocks it keeps, and its shares of the Schur cross term and of the
-    reduced RHS, which are summed over the shards."""
-    f = problem.cam_params.shape[0]
-    p = problem.points.shape[0]
-    fidx, pidx = problem.frame_idx, problem.point_idx
-    v = _segment_sum(torch.einsum("nri,nrj->nij", jp, jp), pidx, p)
-    w = torch.einsum("nri,nrj->nij", jc, jp)  # (N, 6, 3)
-    b_p = -_segment_sum(torch.einsum("nri,nr->ni", jp, r), pidx, p)
-    eye3 = torch.eye(3, dtype=v.dtype, device=v.device)
-    v_d = v + lam * (v * eye3 + 1e-8 * eye3)
-    # Degeneracy on the UNDAMPED trace (see the reference's note).
-    v_trace = v[:, 0, 0] + v[:, 1, 1] + v[:, 2, 2]
-    v_d = torch.where((v_trace < 1e-12)[:, None, None], eye3, v_d)
-    v_inv = torch.linalg.inv(v_d)
-
-    # Dense per-point camera strip A_p (P, F*6, 3); S = blkdiag(U) - sum_p A_p V_p^-1 A_p^T.
-    a = torch.zeros((p, f, 6, 3), dtype=w.dtype, device=w.device)
-    a.index_put_((pidx, fidx), w, accumulate=True)
-    a_flat = a.reshape(p, f * 6, 3)
-    b_strip = torch.einsum("pak,pkl->pal", a_flat, v_inv)
-    s_cross = torch.einsum("pak,pbk->ab", b_strip, a_flat)
-
-    y = torch.einsum("nij,njk->nik", w, v_inv[pidx])
-    red = _segment_sum(torch.einsum("nij,nj->ni", y, b_p[pidx]), fidx, f)
-    return w, v_inv, b_p, s_cross, red
+def _damped(m, lam):
+    """Marquardt damping of the (L, K, d, d) blocks ``m`` by each lane's
+    ``lam`` (L,). A block of UNDAMPED trace below 1e-12 (an unobserved or
+    padded camera or point, see the reference's note) becomes the identity,
+    so its rows decouple and its step solves to 0."""
+    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+    damped = m + lam[:, None, None, None] * (m * eye + 1e-8 * eye)
+    return torch.where((torch.einsum("...ii->...", m) < 1e-12)[..., None, None], eye, damped)
 
 
-def _solve_normal_equations(shards, lam, jc, jp, r, fix_points: bool = False, reduce=_identity):
-    """One damped Gauss-Newton step via the Schur complement, over point
-    shards.
+def _schur_step(shards, index, lam, jc, jp, r, fix_points: bool = False, reduce=_identity):
+    """One damped Gauss-Newton step of every lane via the Schur complement,
+    over point shards.
 
-    ``shards`` holds one BAProblem per shard (the cameras, this shard's
-    points, its observations with local point indices); ``lam``, ``jc``,
-    ``jp`` and ``r`` hold one entry per shard. The camera-sized sums go
-    through ``reduce`` (one tensor per shard in, their sum per shard out),
-    so every shard solves the same reduced camera system; the point blocks
-    stay with their shard. Returns [(delta_cam (F,6), delta_pt (P,3))] per
-    shard. ``fix_points`` (the pose-only problem): W = V = 0, the camera
-    system is block-diagonal and delta_p = 0 exactly; there ``lam`` may hold
-    one damping per camera.
-    """
-    f = shards[0].cam_params.shape[0]
+    ``shards`` holds one lane-stacked BAProblem per shard (the cameras, this
+    shard's points and their observations), ``index`` its
+    :func:`_across_lanes`; ``lam`` (L,), ``jc`` (L, N, 2, 6), ``jp``
+    (L, N, 2, 3) and ``r`` (L, N, 2) hold one entry per shard. The
+    camera-sized sums (U, b_c, the Schur cross term, the reduced RHS) go
+    through ``reduce`` (one tensor per shard in, their sum per shard out), so
+    every shard solves the same reduced camera systems; the point blocks
+    stay with their shard. Returns [(delta_cam (L, F, 6), delta_pt
+    (L, P, 3))] per shard. ``fix_points`` (the pose-only problems): W = V =
+    0, each camera's system is its own 6x6 block and delta_pt is None."""
+    nl, f = shards[0].cam_params.shape[:2]
+    jc = [j.reshape(-1, 2, 6) for j in jc]
+    jp = [j.reshape(-1, 2, 3) for j in jp]
+    r = [x.reshape(-1, 2) for x in r]
     u = reduce([
-        _segment_sum(torch.einsum("nri,nrj->nij", jc_s, jc_s), p.frame_idx, f) for p, jc_s in zip(shards, jc)
+        _segment_sum(torch.einsum("nri,nrj->nij", j, j), fidx, nl * f).reshape(nl, f, 6, 6)
+        for (fidx, _), j in zip(index, jc)
     ])
     b_c = reduce([
-        -_segment_sum(torch.einsum("nri,nr->ni", jc_s, r_s), p.frame_idx, f) for p, jc_s, r_s in zip(shards, jc, r)
+        -_segment_sum(torch.einsum("nri,nr->ni", j, x), fidx, nl * f).reshape(nl, f, 6)
+        for (fidx, _), j, x in zip(index, jc, r)
     ])
+    u_d = [_damped(u_s, lam_s) for u_s, lam_s in zip(u, lam)]
     if fix_points:
-        return [
-            (torch.linalg.solve(_damped_u(u_s, lam_s), b_s[..., None])[..., 0], torch.zeros_like(p.points))
-            for p, u_s, b_s, lam_s in zip(shards, u, b_c, lam)
-        ]
-    sides = [_point_side(*args) for args in zip(shards, lam, jc, jp, r)]
+        return [(torch.linalg.solve_ex(u_s, b_s[..., None])[0][..., 0], None) for u_s, b_s in zip(u_d, b_c)]
+
+    sides = []  # per shard: W, V^-1, b_p, and its shares of the cross term and the reduced RHS
+    for p, (fidx, pidx), j_c, j_p, x, lam_s in zip(shards, index, jc, jp, r, lam):
+        n_p = p.points.shape[1]
+        v = _segment_sum(torch.einsum("nri,nrj->nij", j_p, j_p), pidx, nl * n_p).reshape(nl, n_p, 3, 3)
+        v_inv = torch.linalg.inv_ex(_damped(v, lam_s))[0]
+        b_p = -_segment_sum(torch.einsum("nri,nr->ni", j_p, x), pidx, nl * n_p)
+        w = torch.einsum("nri,nrj->nij", j_c, j_p)  # (L*N, 6, 3)
+        # Dense per-point camera strip A_p (L, P, F*6, 3); S = blkdiag(U) - sum_p A_p V_p^-1 A_p^T per lane.
+        a = torch.zeros((nl * n_p, f, 6, 3), dtype=w.dtype, device=w.device)
+        a.index_put_((pidx, p.frame_idx.reshape(-1)), w, accumulate=True)
+        a = a.reshape(nl, n_p, f * 6, 3)
+        s_cross = torch.einsum("vpak,vpbk->vab", torch.einsum("vpak,vpkl->vpal", a, v_inv), a)
+        v_inv = v_inv.reshape(nl * n_p, 3, 3)
+        y = torch.einsum("nij,njk->nik", w, v_inv[pidx])
+        red = _segment_sum(torch.einsum("nij,nj->ni", y, b_p[pidx]), fidx, nl * f).reshape(nl, f, 6)
+        sides.append((w, v_inv, b_p, s_cross, red))
     s_cross = reduce([side[3] for side in sides])
     red = reduce([side[4] for side in sides])
     steps = []
-    for p, (w, v_inv, b_p, _, _), u_s, b_s, s_s, red_s, lam_s in zip(shards, sides, u, b_c, s_cross, red, lam):
-        s = torch.block_diag(*_damped_u(u_s, lam_s).unbind(0)) - s_s
-        delta_c = torch.linalg.solve(s, (b_s - red_s).reshape(f * 6)).reshape(f, 6)
+    for (fidx, pidx), (w, v_inv, b_p, _, _), u_s, b_s, s_s, red_s in zip(index, sides, u_d, b_c, s_cross, red):
+        system = -s_s  # + blkdiag(U_d): the (F, F) diagonal of its 6x6 blocks
+        system.view(nl, f, 6, f, 6).diagonal(dim1=1, dim2=3).add_(u_s.permute(0, 2, 3, 1))
+        delta_c = torch.linalg.solve_ex(system, (b_s - red_s).reshape(nl, f * 6))[0].reshape(nl, f, 6)
         # Back-substitute: delta_p = V^-1 (b_p - sum_{n in p} W_n^T delta_c[f_n]).
-        wt_dc = _segment_sum(torch.einsum("nij,ni->nj", w, delta_c[p.frame_idx]), p.point_idx, p.points.shape[0])
-        steps.append((delta_c, torch.einsum("pij,pj->pi", v_inv, b_p - wt_dc)))
+        wt_dc = _segment_sum(torch.einsum("nij,ni->nj", w, delta_c.reshape(-1, 6)[fidx]), pidx, b_p.shape[0])
+        steps.append((delta_c, torch.einsum("pij,pj->pi", v_inv, b_p - wt_dc).reshape(nl, -1, 3)))
     return steps
 
 
-def _cost(problem, cam, pts):
-    r = _residuals(cam, pts, *_fields(problem))
-    return 0.5 * torch.sum(r * r)
-
-
 def _canonical(problem: BAProblem) -> BAProblem:
-    """One float dtype for every float field (mixed f32/f64 inputs)."""
+    """One float dtype for every float field (mixed f32/f64 inputs), int64
+    indices."""
     dtype = torch.promote_types(
         torch.promote_types(problem.cam_params.dtype, problem.points.dtype),
         torch.promote_types(problem.obs.dtype, problem.intrinsics.dtype),
@@ -206,12 +204,21 @@ def _canonical(problem: BAProblem) -> BAProblem:
         points=problem.points.to(dtype),
         intrinsics=problem.intrinsics.to(dtype),
         obs=problem.obs.to(dtype),
+        frame_idx=problem.frame_idx.long(),
+        point_idx=problem.point_idx.long(),
         weight=None if problem.weight is None else problem.weight.to(dtype),
     )
 
 
+def _fields(problem: BAProblem):
+    """The fixed arguments of ``_residuals`` and ``_obs_jacobians``."""
+    return (
+        problem.intrinsics, problem.obs, problem.frame_idx, problem.point_idx, problem.mask, problem.weight,
+    )
+
+
 def _lm_decision(config: SolverConfig, cost, lam, c1, c2):
-    """The LM acceptance rule, elementwise over problems: of the two trial
+    """The LM acceptance rule, elementwise over lanes: of the two trial
     steps (damping ``lam`` and ``lam * lambda_up**2``) take the cheaper; keep
     it if it lowers the cost. Returns (use the first trial, improved, new
     cost, new damping, done by the ftol rule or an exploded damping)."""
@@ -227,6 +234,124 @@ def _lm_decision(config: SolverConfig, cost, lam, c1, c2):
     return use1, improved, new_cost, new_lam, done
 
 
+def _pick(take, use1, first, second, old):
+    """Per lane: the first or the second trial where the lane steps, else
+    its old state."""
+    take, use1 = take.to(old.device)[:, None, None], use1.to(old.device)[:, None, None]
+    return torch.where(take, torch.where(use1, first, second), old)
+
+
+class _BatchSolve:
+    """The LM of lane-stacked problems, one iteration of every active lane
+    per :meth:`step`. ``shards``: the lanes' point shards (see
+    :func:`_schur_step`; the cameras the same in each); their costs,
+    observation counts and rmse sums go through ``reduce`` too, so every
+    shard takes the same decisions. Each lane's damping (from
+    ``init_lambda``, a float or a 0-d tensor, or ``config.init_lambda``),
+    cost, iteration count and stop (``active``) live on the first shard's
+    device."""
+
+    def __init__(self, shards, config: SolverConfig, fix_points: bool = False, init_lambda=None, reduce=_identity):
+        self.shards = [_canonical(p) for p in shards]
+        self.index = [_across_lanes(p) for p in self.shards]
+        self.config, self.fix_points, self.reduce = config, fix_points, reduce
+        self.cam = [p.cam_params for p in self.shards]
+        self.pts = [p.points for p in self.shards]
+        self.cost = self._costs(self.cam, self.pts)
+        first = self.cam[0]
+        lam0 = config.init_lambda if init_lambda is None else init_lambda
+        # A product, not a copy: a float or a 0-d tensor on the device, no host read.
+        self.lam = torch.ones(first.shape[0], dtype=first.dtype, device=first.device) * lam0
+        self.it = torch.zeros(first.shape[0], dtype=torch.int64, device=first.device)
+        self.active = torch.ones(first.shape[0], dtype=torch.bool, device=first.device)
+
+    def _costs(self, cam, pts):
+        """(L,) 0.5 * sum r^2 of each lane over its (N, 2) residuals, summed
+        over the shards."""
+        costs = []
+        for p, c, x in zip(self.shards, cam, pts):
+            r = _residuals(c, x, *_fields(p))
+            costs.append(0.5 * torch.sum(r * r, dim=(1, 2)))
+        return self.reduce(costs)[0]
+
+    def step(self) -> torch.Tensor:
+        """One LM iteration of every active lane; returns the "any lane
+        still active" flag, on the device (not read)."""
+        config, active, lam = self.config, self.active, self.lam
+        with trace("linearize"):
+            r = [_residuals(c, x, *_fields(p)) for p, c, x in zip(self.shards, self.cam, self.pts)]
+            jc, jp = zip(*(_obs_jacobians(c, x, *_fields(p)) for p, c, x in zip(self.shards, self.cam, self.pts)))
+
+        def attempt(lam_try):
+            steps = _schur_step(self.shards, self.index, [lam_try.to(c.device) for c in self.cam], jc, jp, r,
+                                fix_points=self.fix_points, reduce=self.reduce)
+            cam = [c + dc for c, (dc, _) in zip(self.cam, steps)]
+            pts = self.pts if self.fix_points else [x + dp for x, (_, dp) in zip(self.pts, steps)]
+            return cam, pts, self._costs(cam, pts)
+
+        with trace("solve"):
+            cam1, pts1, c1 = attempt(lam)
+            cam2, pts2, c2 = attempt(lam * config.lambda_up**2)
+        with trace("decide"):
+            use1, improved, new_cost, new_lam, done = _lm_decision(config, self.cost, lam, c1, c2)
+            # Lanes that have stopped keep their state.
+            take = active & improved
+            self.cam = [_pick(take, use1, a, b, c) for a, b, c in zip(cam1, cam2, self.cam)]
+            if not self.fix_points:
+                self.pts = [_pick(take, use1, a, b, x) for a, b, x in zip(pts1, pts2, self.pts)]
+            self.cost = torch.where(active, new_cost, self.cost)
+            self.lam = torch.where(active, new_lam, lam)
+            self.it = self.it + active
+            self.active = active & ~done
+            return self.active.any()
+
+    def result(self) -> BAResult:
+        """Per lane: cameras, points (the shards' blocks in order, on the
+        first shard's device), cost, unweighted pixel rmse, iterations and
+        damping."""
+        sq, n_valid = [], []
+        for p, c, x in zip(self.shards, self.cam, self.pts):
+            r_px = _residuals(c, x, *_fields(p)[:-1])  # the UNWEIGHTED pixel residuals
+            sq.append(torch.sum(r_px * r_px, dim=(1, 2)))
+            n_valid.append(p.mask.sum(1))
+        rmse = torch.sqrt(self.reduce(sq)[0] / torch.clamp(self.reduce(n_valid)[0], min=1))
+        home = self.cam[0].device
+        pts = torch.cat([x.to(home) for x in self.pts], dim=1)
+        return BAResult(self.cam[0], pts, self.cost, rmse, self.it, self.lam)
+
+
+def _lm_loop(solves) -> int:
+    """The LM loop of every solve: steps ``solves`` (``_BatchSolve``s, one
+    per device) in lockstep until no lane of any is active or
+    ``max_iters``, with one host read an iteration (the one stepper's flag,
+    or every stepper's stacked on the first's device); a stepper whose lanes
+    are all done stops stepping. Adds the iterations to ``lm_iterations`` of
+    the span it runs in and returns them."""
+    running, iterations = list(solves), 0
+    while running and iterations < solves[0].config.max_iters:
+        flags = [s.step() for s in running]
+        iterations += 1
+        with trace("decide"):  # the one host read per iteration
+            if len(flags) == 1:
+                live = [bool(flags[0])]
+            else:
+                live = torch.stack([f.to(flags[0].device) for f in flags]).tolist()
+        running = [s for s, on in zip(running, live) if on]
+    span_add("lm_iterations", iterations)
+    return iterations
+
+
+def _solve_one(shards, config: SolverConfig, fix_points: bool = False, init_lambda=None, reduce=_identity) -> BAResult:
+    """One problem, given as its point shards (one for :func:`solve_ba`), as
+    one lane: a BAResult without the lane axis, ``iterations`` an int, the
+    points of every shard in order on the first shard's device."""
+    lanes = [BAProblem(*(None if x is None else x[None] for x in p)) for p in shards]
+    lm = _BatchSolve(lanes, config, fix_points, init_lambda, reduce)
+    iterations = _lm_loop([lm])
+    res = lm.result()
+    return BAResult(res.cam_params[0], res.points[0], res.cost[0], res.rmse[0], iterations, res.final_lambda[0])
+
+
 def solve_ba(
     problem: BAProblem,
     config: SolverConfig = SolverConfig(),
@@ -240,121 +365,7 @@ def solve_ba(
     warm-starting a grown prefix of the same problem from the previous
     solve's ``final_lambda`` skips the damping walk-down.
     """
-    return _solve_shards([problem], config, fix_points, init_lambda)[0]
-
-
-def _solve_shards(shards, config: SolverConfig, fix_points: bool = False, init_lambda=None, reduce=_identity):
-    """The LM loop of :func:`solve_ba` over point shards (see
-    :func:`_solve_normal_equations`): the observation count, the costs and
-    the rmse's sum of squares go through ``reduce`` too, so every shard
-    takes the same decisions, and the flag of the first shard is the one
-    host read per iteration. Returns one BAResult per shard: cameras, cost,
-    rmse, iterations and damping the same on every shard, points the
-    shard's own."""
-    shards = [_canonical(p) for p in shards]
-    n_valid = [torch.clamp(n, min=1) for n in reduce([p.mask.sum() for p in shards])]
-
-    def costs(cam, pts):
-        return reduce([_cost(p, c, x) for p, c, x in zip(shards, cam, pts)])
-
-    cam = [p.cam_params for p in shards]
-    pts = [p.points for p in shards]
-    cost = costs(cam, pts)
-    lam0 = config.init_lambda if init_lambda is None else init_lambda
-    lam = [torch.as_tensor(lam0, dtype=c.dtype, device=c.device) for c in cam]
-    it = 0
-    while it < config.max_iters:
-        with trace("linearize"):
-            r = [_residuals(c, x, *_fields(p)) for p, c, x in zip(shards, cam, pts)]
-            jc, jp = zip(*(_obs_jacobians(c, x, *_fields(p)) for p, c, x in zip(shards, cam, pts)))
-
-        def attempt(lam_try):
-            steps = _solve_normal_equations(
-                [p._replace(cam_params=c, points=x) for p, c, x in zip(shards, cam, pts)],
-                lam_try, jc, jp, r, fix_points=fix_points, reduce=reduce,
-            )
-            new_cam = [c + dc for c, (dc, _) in zip(cam, steps)]
-            new_pts = [x + dp for x, (_, dp) in zip(pts, steps)]
-            return new_cam, new_pts, costs(new_cam, new_pts)
-
-        with trace("solve"):
-            c1_cam, c1_pts, c1 = attempt(lam)
-            c2_cam, c2_pts, c2 = attempt([l * config.lambda_up**2 for l in lam])
-        it += 1
-        with trace("decide"):
-            done = []
-            for s in range(len(shards)):
-                use1, improved, cost[s], lam_s, done_s = _lm_decision(config, cost[s], lam[s], c1[s], c2[s])
-                cam[s] = torch.where(improved, torch.where(use1, c1_cam[s], c2_cam[s]), cam[s])
-                pts[s] = torch.where(improved, torch.where(use1, c1_pts[s], c2_pts[s]), pts[s])
-                lam[s] = lam_s
-                done.append(done_s)
-            if bool(done[0]):  # the one host read per iteration
-                break
-    span_add("lm_iterations", it)
-
-    def sum_sq(p, c, x):  # the UNWEIGHTED pixel residuals, whatever the weights
-        r_px = _residuals(c, x, *_fields(p)[:-1])
-        return torch.sum(r_px * r_px)
-
-    sq = reduce([sum_sq(p, c, x) for p, c, x in zip(shards, cam, pts)])
-    return [
-        BAResult(cam[s], pts[s], cost[s], torch.sqrt(sq[s] / n_valid[s]), it, lam[s]) for s in range(len(shards))
-    ]
-
-
-def _fields(problem: BAProblem):
-    """The fixed arguments of ``_residuals`` and ``_obs_jacobians``."""
-    return (
-        problem.intrinsics, problem.obs, problem.frame_idx, problem.point_idx, problem.mask, problem.weight,
-    )
-
-
-def _solve_normal_equations_batch(problem: BAProblem, lam, jc, jp, r):
-    """:func:`_solve_normal_equations` for (V,) independent problems
-    stacked on a leading lane axis, each with its own damping ``lam`` (V,).
-    Frames and points are numbered per lane (lane * F + f) so one segment
-    sum serves every lane; each lane has its own (P, F*6, 3) strip and
-    (6F, 6F) reduced system. Unobserved (padded) cameras and points get
-    identity blocks and solve to 0. The ``_ex`` solves leave a singular
-    lane's step non-finite instead of raising or reading back."""
-    nv, f = problem.cam_params.shape[:2]
-    p = problem.points.shape[1]
-    lane = torch.arange(nv, device=jc.device)[:, None]
-    fidx = (lane * f + problem.frame_idx).reshape(-1)
-    pidx = (lane * p + problem.point_idx).reshape(-1)
-    jc, jp, r = jc.reshape(-1, 2, 6), jp.reshape(-1, 2, 3), r.reshape(-1, 2)
-    u = _segment_sum(torch.einsum("nri,nrj->nij", jc, jc), fidx, nv * f).reshape(nv, f, 6, 6)
-    b_c = -_segment_sum(torch.einsum("nri,nr->ni", jc, r), fidx, nv * f).reshape(nv, f, 6)
-    v = _segment_sum(torch.einsum("nri,nrj->nij", jp, jp), pidx, nv * p).reshape(nv, p, 3, 3)
-    b_p = -_segment_sum(torch.einsum("nri,nr->ni", jp, r), pidx, nv * p)
-    w = torch.einsum("nri,nrj->nij", jc, jp)  # (V*N, 6, 3)
-    lam = lam[:, None, None, None]
-    eye6 = torch.eye(6, dtype=u.dtype, device=u.device)
-    eye3 = torch.eye(3, dtype=v.dtype, device=v.device)
-    u_d = u + lam * (u * eye6 + 1e-8 * eye6)
-    u_d = torch.where((torch.einsum("vfii->vf", u) < 1e-12)[..., None, None], eye6, u_d)
-    v_d = v + lam * (v * eye3 + 1e-8 * eye3)
-    v_trace = v[..., 0, 0] + v[..., 1, 1] + v[..., 2, 2]
-    v_d = torch.where((v_trace < 1e-12)[..., None, None], eye3, v_d)
-    v_inv = torch.linalg.inv_ex(v_d)[0].reshape(nv * p, 3, 3)
-
-    a = torch.zeros((nv * p, f, 6, 3), dtype=w.dtype, device=w.device)
-    a.index_put_((pidx, problem.frame_idx.reshape(-1)), w, accumulate=True)
-    a_flat = a.reshape(nv, p, f * 6, 3)
-    b_strip = torch.einsum("vpak,vpkl->vpal", a_flat, v_inv.reshape(nv, p, 3, 3))
-    s_cross = torch.einsum("vpak,vpbk->vab", b_strip, a_flat)
-    eye_f = torch.eye(f, dtype=u.dtype, device=u.device)
-    s = torch.einsum("vfij,fg->vfigj", u_d, eye_f).reshape(nv, f * 6, f * 6) - s_cross
-
-    y = torch.einsum("nij,njk->nik", w, v_inv[pidx])
-    red = _segment_sum(torch.einsum("nij,nj->ni", y, b_p[pidx]), fidx, nv * f).reshape(nv, f, 6)
-    rhs = (b_c - red).reshape(nv, f * 6)
-    delta_c = torch.linalg.solve_ex(s, rhs)[0].reshape(nv, f, 6)
-
-    wt_dc = _segment_sum(torch.einsum("nij,ni->nj", w, delta_c.reshape(-1, 6)[fidx]), pidx, nv * p)
-    delta_p = torch.einsum("pij,pj->pi", v_inv, b_p - wt_dc).reshape(nv, p, 3)
-    return delta_c, delta_p
+    return _solve_one([problem], config, fix_points, init_lambda)
 
 
 def solve_ba_batch(problem: BAProblem, config: SolverConfig = SolverConfig()) -> BAResult:
@@ -368,72 +379,9 @@ def solve_ba_batch(problem: BAProblem, config: SolverConfig = SolverConfig()) ->
     ``vmap`` of one ``while_loop``; the loop reads one "any lane active"
     flag per iteration. ``iterations`` and the other result fields are
     per lane."""
-    lm = _BatchSolve(problem, config)
-    iterations = 0
-    while config.max_iters > 0:
-        active = lm.step()
-        iterations += 1
-        with trace("decide"):
-            if not bool(active):  # the one host read per iteration
-                break
-    span_add("lm_iterations", iterations)
+    lm = _BatchSolve([problem], config)
+    _lm_loop([lm])
     return lm.result()
-
-
-class _BatchSolve:
-    """The LM of :func:`solve_ba_batch`, one iteration per :meth:`step`, so
-    that ``parallel.sharded.solve_ba_batch`` can step one per device in
-    lockstep."""
-
-    def __init__(self, problem: BAProblem, config: SolverConfig):
-        self.problem = problem = _canonical(problem)
-        self.config = config
-        nv = problem.cam_params.shape[0]
-        self.fixed = (problem.intrinsics, problem.obs, problem.frame_idx, problem.point_idx, problem.mask)
-        self.weighted = self.fixed if problem.weight is None else self.fixed + (problem.weight,)
-        self.cam, self.pts = problem.cam_params, problem.points
-        self.cost = self._costs(self.cam, self.pts)
-        device = self.cam.device
-        self.lam = torch.full((nv,), config.init_lambda, dtype=self.cam.dtype, device=device)
-        self.it = torch.zeros(nv, dtype=torch.int64, device=device)
-        self.active = torch.full((nv,), config.max_iters > 0, dtype=torch.bool, device=device)
-
-    def _costs(self, cam, pts):  # (V,) 0.5 * sum r^2 per lane
-        r = vmap(_residuals)(cam, pts, *self.weighted)
-        return 0.5 * torch.sum(r * r, dim=(1, 2))
-
-    def step(self) -> torch.Tensor:
-        """One LM iteration of every active lane; returns the "any lane
-        still active" flag, on the device (not read)."""
-        config, cam, pts, lam, active = self.config, self.cam, self.pts, self.lam, self.active
-        with trace("linearize"):
-            r = vmap(_residuals)(cam, pts, *self.weighted)
-            jc, jp = _obs_jacobians(cam, pts, *self.weighted)
-
-        def attempt(lam_try):
-            dc, dp = _solve_normal_equations_batch(self.problem._replace(cam_params=cam, points=pts), lam_try, jc, jp, r)
-            return cam + dc, pts + dp, self._costs(cam + dc, pts + dp)
-
-        with trace("solve"):
-            c1_cam, c1_pts, c1 = attempt(lam)
-            c2_cam, c2_pts, c2 = attempt(lam * config.lambda_up**2)
-        with trace("decide"):
-            use1, improved, new_cost, new_lam, done = _lm_decision(config, self.cost, lam, c1, c2)
-            # Lanes that have stopped keep their state.
-            step = (active & improved)[:, None, None]
-            self.cam = torch.where(step, torch.where(use1[:, None, None], c1_cam, c2_cam), cam)
-            self.pts = torch.where(step, torch.where(use1[:, None, None], c1_pts, c2_pts), pts)
-            self.cost = torch.where(active, new_cost, self.cost)
-            self.lam = torch.where(active, new_lam, lam)
-            self.it = self.it + active.to(torch.int64)
-            self.active = active & ~done & (self.it < config.max_iters)
-            return self.active.any()
-
-    def result(self) -> BAResult:
-        r_px = vmap(_residuals)(self.cam, self.pts, *self.fixed)
-        n_valid = torch.clamp(self.problem.mask.sum(1), min=1)
-        rmse = torch.sqrt(torch.sum(r_px * r_px, dim=(1, 2)) / n_valid)
-        return BAResult(self.cam, self.pts, self.cost, rmse, self.it, self.lam)
 
 
 def _ceil_to(n: int, q: int) -> int:
@@ -582,67 +530,22 @@ def pose_only_refine(
 
     ``cam_params`` (B, 6); ``points_3d`` (B, N, 3), ``obs`` (B, N, 2) and
     ``mask`` (B, N) per problem. Each problem keeps its own damping, cost
-    and stop, as the reference's ``vmap`` of one ``while_loop`` does: every
-    iteration steps all problems and freezes those already done, and the
-    loop ends when none is left (one host read per iteration). Folding them
-    into one joint solve would stop them all at the same point.
+    and stop, as the reference's ``vmap`` of one ``while_loop`` does: each
+    is a lane of one camera (``_BatchSolve``), and the loop ends when none
+    is left. Folding them into one joint solve would stop them all at the
+    same point.
     """
     b, n = obs.shape[:2]
     device = obs.device
-    problem = _canonical(
-        BAProblem(
-            cam_params=cam_params,
-            points=points_3d.reshape(-1, 3),
-            intrinsics=intrinsics,
-            obs=obs.reshape(-1, 2),
-            frame_idx=torch.arange(b, device=device).repeat_interleave(n),
-            point_idx=torch.arange(b * n, device=device),
-            mask=mask.reshape(-1),
-        )
+    problem = BAProblem(
+        cam_params=cam_params[:, None],
+        points=points_3d.contiguous(),
+        intrinsics=intrinsics.expand(b, 3, 3).contiguous(),
+        obs=obs.contiguous(),
+        frame_idx=torch.zeros((b, n), dtype=torch.int64, device=device),
+        point_idx=torch.arange(n, device=device).repeat(b, 1),
+        mask=mask.contiguous(),
     )
-
-    def residuals(cam):
-        return _residuals(
-            cam, problem.points, problem.intrinsics, problem.obs, problem.frame_idx,
-            problem.point_idx, problem.mask,
-        )
-
-    def costs(cam):  # (B,) 0.5 * sum r^2 per problem
-        r = residuals(cam)
-        return 0.5 * torch.sum((r * r).reshape(b, -1), dim=1)
-
-    cam = problem.cam_params
-    cost = costs(cam)
-    lam = torch.full((b,), config.init_lambda, dtype=cam.dtype, device=device)
-    it = torch.zeros(b, dtype=torch.int64, device=device)
-    active = torch.full((b,), config.max_iters > 0, dtype=torch.bool, device=device)
-    iterations = 0
-    while config.max_iters > 0:
-        with trace("linearize"):
-            r = residuals(cam)
-            jc, jp = _obs_jacobians(
-                cam, problem.points, problem.intrinsics, problem.obs, problem.frame_idx,
-                problem.point_idx, problem.mask,
-            )
-
-        def attempt(lam_try):
-            [(dc, _)] = _solve_normal_equations([problem._replace(cam_params=cam)], [lam_try], [jc], [jp], [r], fix_points=True)
-            return cam + dc, costs(cam + dc)
-
-        with trace("solve"):
-            c1_cam, c1 = attempt(lam)
-            c2_cam, c2 = attempt(lam * config.lambda_up**2)
-        iterations += 1
-        with trace("decide"):
-            use1, improved, new_cost, new_lam, done = _lm_decision(config, cost, lam, c1, c2)
-            new_cam = torch.where(improved[:, None], torch.where(use1[:, None], c1_cam, c2_cam), cam)
-            # Problems that have stopped keep their state.
-            cam = torch.where(active[:, None], new_cam, cam)
-            cost = torch.where(active, new_cost, cost)
-            lam = torch.where(active, new_lam, lam)
-            it = it + active.to(torch.int64)
-            active = active & ~done & (it < config.max_iters)
-            if not bool(active.any()):  # the one host read per iteration
-                break
-    span_add("lm_iterations", iterations)
-    return cam
+    lm = _BatchSolve([problem], config, fix_points=True)
+    _lm_loop([lm])
+    return lm.cam[0][:, 0]

@@ -38,6 +38,22 @@ def test_adjust_points_matches_jax(weighted):
     assert float(tr.rmse) < 1.0
 
 
+def test_solve_ba_is_one_lane_of_solve_ba_batch():
+    """``solve_ba`` on a problem and ``solve_ba_batch`` on it as one lane run
+    the same LM: the same iterations, and cameras, points, cost, rmse and
+    damping within float32 rounding."""
+    K, _, _, cams0, pts0, obs, fidx, pidx = make_problem(n_frames=8, n_points=150, seed=3)
+    n = len(obs)
+    problem = tba.BAProblem(tt(f32(cams0)), tt(f32(pts0)), tt(f32(K)), tt(f32(obs)), torch.as_tensor(fidx),
+                            torch.as_tensor(pidx), torch.as_tensor(np.arange(n) % 7 != 0),
+                            tt(f32(1.0 / 1.2 ** (np.arange(n) % 3))))
+    one = tba.solve_ba(problem)
+    lane = tba.solve_ba_batch(tba.BAProblem(*(x[None] for x in problem)))
+    assert int(lane.iterations[0]) == one.iterations >= 2
+    for name in ("cam_params", "points", "cost", "rmse", "final_lambda"):
+        torch.testing.assert_close(getattr(lane, name)[0], getattr(one, name), rtol=1e-6, atol=1e-6, msg=name)
+
+
 def test_adjust_points_mask_drops_observations():
     K, _, _, cams0, pts0, obs, fidx, pidx = make_problem(n_frames=6, n_points=80, seed=4)
     ext0 = f32(np.asarray(jproj.extrinsics_from_params(jnp.asarray(f32(cams0)))))

@@ -15,6 +15,7 @@ import torch
 from meatmodeler_tpu_torch.geometry import projection
 from meatmodeler_tpu_torch.io.synthetic import TurntableScene, render_sequence
 from meatmodeler_tpu_torch.odometry import chain_poses
+from meatmodeler_tpu_torch.parallel import sharded
 from meatmodeler_tpu_torch.solvers import bundle_adjust
 from meatmodeler_tpu_torch.tools.profile_headline import synthetic_ba_problem
 from meatmodeler_tpu_torch.utils import profiling
@@ -184,32 +185,49 @@ def test_hook_is_held_while_any_thread_has_a_stage_open(synced):
     assert metrics.counters == {"host_reads:pose_ba": 1, "host_reads:pass2_orb": 1}
 
 
-def test_lm_loops_count_their_iterations(unsynced):
-    problem = synthetic_ba_problem("cpu", n_frames=4, n_points=60, n_obs=400)
-    metrics = Metrics()
-    with metrics.stage("bundle_adjustment"):
-        res = bundle_adjust.solve_ba(problem)
-    with metrics.stage("pose_ba"):
-        bundle_adjust.solve_ba(problem, fix_points=True)
-    # Three pose-only problems against 50 fixed points, from the problem's
-    # perturbed cameras.
+def _pose_chain(problem):
+    """Three pose-only problems against 50 fixed points, from the problem's
+    perturbed cameras (``pose_only_refine`` returns no iteration count)."""
     pts = problem.points[:50]
     obs = torch.stack([projection.project_points(pts, c.expand(50, 6), problem.intrinsics)
                        for c in problem.cam_params[:3]])
-    with metrics.stage("pose_chain"):
-        bundle_adjust.pose_only_refine(
-            problem.cam_params[:3] + 0.01, pts.expand(3, -1, -1), problem.intrinsics, obs,
-            torch.ones(3, 50, dtype=torch.bool),
-        )
-    batch = bundle_adjust.BAProblem(*(None if x is None else torch.stack([x, x]) for x in problem))
-    with metrics.stage("batch_solve"):
-        res_b = bundle_adjust.solve_ba_batch(batch)
-    c, t = metrics.counters, metrics.timings
-    assert c["lm_iterations:bundle_adjustment"] == res.iterations >= 1
-    assert c["lm_iterations:pose_ba"] >= 1 and c["lm_iterations:pose_chain"] >= 1
-    assert c["lm_iterations:batch_solve"] == int(res_b.iterations.max())
-    for stage in ("bundle_adjustment", "pose_ba", "pose_chain", "batch_solve"):
-        assert {f"{stage}/linearize", f"{stage}/solve", f"{stage}/decide"} <= set(t)
+    bundle_adjust.pose_only_refine(problem.cam_params[:3] + 0.01, pts.expand(3, -1, -1), problem.intrinsics, obs,
+                                   torch.ones(3, 50, dtype=torch.bool))
+
+
+def _two_lanes(problem):
+    return bundle_adjust.BAProblem(*(None if x is None else torch.stack([x, x]) for x in problem))
+
+
+def _two_cpus():
+    return sharded.make_mesh(data=2, devices=["cpu"] * 2)
+
+
+# Each LM entry point, run in a stage of its name; returns the iterations it reports.
+LM_SOLVES = {
+    "bundle_adjustment": lambda p: bundle_adjust.solve_ba(p).iterations,
+    "pose_ba": lambda p: bundle_adjust.solve_ba(p, fix_points=True).iterations,
+    "pose_chain": _pose_chain,
+    "batch_solve": lambda p: int(bundle_adjust.solve_ba_batch(_two_lanes(p)).iterations.max()),
+    "point_sharded": lambda p: sharded.solve_ba_point_sharded(_two_cpus(), p).iterations,
+    "mesh_batch": lambda p: int(sharded.solve_ba_batch(_two_cpus(), _two_lanes(p)).iterations.max()),
+}
+
+
+@pytest.mark.parametrize("stage", list(LM_SOLVES))
+def test_lm_loops_count_their_iterations(unsynced, stage):
+    """Every LM solve adds its iterations (the largest lane's) to
+    ``lm_iterations:<path>`` once, and times its ``linearize``, ``solve``
+    and ``decide`` children."""
+    problem = synthetic_ba_problem("cpu", n_frames=4, n_points=60, n_obs=400)
+    metrics = Metrics()
+    with metrics.stage(stage):
+        iterations = LM_SOLVES[stage](problem)
+    counted = {k: v for k, v in metrics.counters.items() if k.startswith("lm_iterations:")}
+    assert list(counted) == [f"lm_iterations:{stage}"]
+    n = counted[f"lm_iterations:{stage}"]
+    assert n >= 1 and (iterations is None or n == iterations)
+    assert {f"{stage}/linearize", f"{stage}/solve", f"{stage}/decide"} <= set(metrics.timings)
 
 
 @pytest.fixture(scope="module")
