@@ -2,11 +2,13 @@
 
 The port's copy of ``meatmodeler_tpu/io/_native_build.py``. The native
 components (the y4m loader, the preprocessing ops, the host pass-1 scan)
-follow the same contract: compile ``native/<name>.cpp`` with g++ on first
-use, cache the ``.so`` in ``build/meatmodeler_tpu_torch/`` beside the CUDA
+follow the same contract: compile their C++ source with g++ on first use,
+cache the ``.so`` in ``build/meatmodeler_tpu_torch/`` beside the CUDA
 kernels' library, rebuild when the source is newer, and degrade to a
 pure-Python fallback (or a raise, for the pass-1 scan) when no toolchain
-exists.
+exists. The y4m loader and the preprocessing ops build the sources in
+``native/``, shared with the JAX package; the pass-1 scan builds the port's
+own threaded copy in ``meatmodeler_tpu_torch/native/``.
 
 Loads are serialized with a lock (pass 1 calls the preprocess ops from both
 the main chunk loop and the board-detection worker thread), and the compile
@@ -27,6 +29,8 @@ from typing import Callable, Optional, Sequence
 _REPO = Path(__file__).resolve().parents[2]
 # The first-party C++ sources, shared with the JAX package (they hold no JAX).
 NATIVE_DIR = _REPO / "native"
+# C++ sources of the port alone.
+PORT_NATIVE_DIR = _REPO / "meatmodeler_tpu_torch" / "native"
 BUILD_DIR = _REPO / "build" / "meatmodeler_tpu_torch"
 
 
